@@ -45,6 +45,11 @@ def _case(device, dtype=torch.float32, seed=0, bs=4, heads=4, dim=16, nq=57,
     dict(h=14, w=14, nq=900, bs=6, heads=8, dim=96),
     dict(h=14, w=14, nq=65, dim=40, pts=37),        # ragged d and P > 32
     dict(h=5, w=7, nq=3, lo=-30.0, hi=30.0),        # far out of the map
+    dict(h=14, w=14, nq=57, bs=1),                  # fewer items than SMs
+    dict(h=14, w=14, nq=901, bs=6, heads=8, dim=96),
+    dict(h=14, w=14, nq=900, bs=48, heads=8, dim=96),   # B=8
+    dict(h=14, w=14, nq=57, bs=2, heads=2, dim=256),    # one V stage fits
+    dict(h=14, w=14, nq=57, dim=3),                 # 12 B rows: no TMA copy
 ])
 def test_kernel_matches_plain_fp32(cuda, shape):
     v, locs, wsm = _case(cuda, **shape)
@@ -58,9 +63,12 @@ def test_kernel_matches_plain_fp32(cuda, shape):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-5)
 
 
-def test_kernel_matches_plain_bf16(cuda):
-    v, locs, wsm = _case(cuda, torch.bfloat16, bs=6, heads=8, dim=96,
-                         nq=900)
+@pytest.mark.parametrize("shape", [
+    dict(bs=6, heads=8, dim=96, nq=900), dict(bs=6, heads=8, dim=96, nq=901),
+    dict(dim=3),                                    # odd d: padded rows
+])
+def test_kernel_matches_plain_bf16(cuda, shape):
+    v, locs, wsm = _case(cuda, torch.bfloat16, **shape)
     with torch.inference_mode():
         got = ms_deform_attn_2d_fused(v, ((14, 14),), locs, wsm)
         torch.cuda.synchronize()
@@ -82,6 +90,12 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
             ms_deform_attn_2d_fused(v, ((13, 14),), locs, wsm)
         with pytest.raises(ValueError, match="device"):
             ms_deform_attn_2d_fused(v, hw, locs.cpu(), wsm)
+        shifted = torch.empty(locs.numel() + 1, device=cuda)[1:]
+        with pytest.raises(ValueError, match="aligned"):
+            ms_deform_attn_2d_fused(v, hw, shifted.view(locs.shape), wsm)
+        with pytest.raises(ValueError, match="shared memory"):
+            big = torch.zeros(1, 30 * 30, 4, 96, device=cuda)
+            ms_deform_attn_2d_fused(big, ((30, 30),), locs[:1], wsm[:1])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ms_deform_attn_2d_fused(v.requires_grad_(), hw, locs, wsm)
 

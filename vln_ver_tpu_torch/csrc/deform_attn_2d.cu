@@ -13,179 +13,562 @@
 // with a matrix product, because gathers are slow there.  Here it is a
 // gather kernel: the bilinear taps are read straight from shared memory.
 //
-// What bounds it: memory.  At the main-path shape with batch 1
-// (bs = 6 camera slots, 14 x 14 values, 8 heads x 96, 8 points, 900
-// queries, fp32) the function must read value 3.61 MB + loc 2.76 MB +
-// weights 1.38 MB and write out 16.59 MB = 24.3 MB, which is 7.3 us at
-// 3.35 TB/s.  Its work is 0.27 GFLOP (4 taps x 96 channels x 2 per point),
-// 4 us at the 67 TFLOP/s fp32 rate.  Both scale with the batch.
+// What bounds it, at the main-path shape with batch 1 (bs = 6 camera slots,
+// 14 x 14 values, 8 heads x 96, 8 points, 900 queries, fp32):
+//  - device memory: value 3.61 MB + loc 2.76 MB + weights 1.38 MB in and
+//    out 16.59 MB = 24.3 MB, 7.3 us at 3.35 TB/s;
+//  - shared memory: each tap inside the map reads its row's d values,
+//    4 taps x 96 x 4 B x 8 points x 900 x 8 heads x 6 slots = 531 MB when
+//    every tap lands inside, about 16 us at 128 B per clock on 132 SMs at
+//    1.98 GHz (33 TB/s).  A gather cannot read less, so this floor, not
+//    the 7.3 us, is what the kernel works against; bf16 values halve it;
+//  - fp32 work: 0.27 GFLOP, 4 us at 67 TFLOP/s.
+// All three scale with the batch.
 //
-// Design: one block per (query tile, head, slot).  The block stages
-// V[b, :, h, :] (H*W rows of d values; 196 x 96 fp32 = 75 KB, 37.6 KB in
-// bf16) in dynamic shared memory, so V is re-read from L2 once per query
-// tile rather than once per tap.  Each warp takes one query at a time;
-// lane j loads point j's location and weight (coalesced) and the warp
-// walks the points with shuffles.  For each point the 4 taps come from
-// floorf, with the bounds tested in float before any int conversion
-// (learned offsets can push a location far outside [0, 1]).  Each lane
-// accumulates w * tap * V in fp32 registers for channels lane, lane + 32,
-// ... (3 per lane at d = 96) and writes its output channels once.
-// H, W, heads, d, P and nq are runtime arguments; d is at most
-// 32 * kMaxChannelsPerLane.
+// Design.  The launch plan (chunk, items, CTAs, stages, row stride, stage
+// and shared-memory bytes) comes from plan_launch in ops/deform_cuda.py,
+// which the CPU tests check; the entry point below refuses a plan that
+// does not fit these shapes.  A CTA is one producer warp and 24 consumer
+// warps.
+//  1. Staging overlaps compute.  The producer warp copies V[b, :, h, :]
+//     (hw rows of d values; row stride heads*d in global memory) into a
+//     ring of `stages` tiles (2 where two fit) with one TMA copy per tile:
+//     value is described to the TMA unit as a 4D tensor (d, heads, W,
+//     bs*H) and the tile is the box (d, 1, W, H) at (0, h, 0, b*H), so the
+//     copy engine moves a whole tile per request rather than one small
+//     bulk copy per row.  The copy completes on the stage's `full`
+//     mbarrier, armed with expect_tx for the whole tile.  The next tile
+//     lands while the consumers work on the current one; an `empty`
+//     mbarrier per stage guards reuse.  Rows whose byte length or address
+//     is not a multiple of 16 (the TMA unit's unit), and maps over 256 a
+//     side (its box limit), are copied by the producer's 32 lanes with
+//     plain loads into the same ring, under the same barriers.
+//  2. Each V tile is staged once per CTA.  The grid is persistent, one CTA
+//     per SM at most.  Work items are (slot, head, query chunk) triples,
+//     numbered so that consecutive items share a (slot, head); each CTA
+//     takes a contiguous run of items and walks all of its queries of one
+//     (slot, head) on one staged tile.
+//  3. Locations and weights are prefetched, and the channel loop has no
+//     branches.  A consumer warp takes one query at a time, 8 points x 4
+//     taps = 32 lanes.  It loads locations (float2) and weights for four
+//     queries x 8 points at once, lane 8i + p taking point p of the i-th,
+//     one such block ahead of its use, so a load has four queries' work to
+//     arrive in.  For each query the warp hands point p to lanes 4p..4p+3
+//     by shuffle; each lane computes its tap's row and combined weight
+//     once, testing the bounds in float before any int conversion, and the
+//     warp packs the taps that land inside the map into a per-warp list in
+//     shared memory (ballot + popc) as (byte offset, weight).  The channel
+//     loop walks only that list, four taps at a time: an invalid tap never
+//     enters the sum, so an inf in V cannot turn into a NaN there.
+//  4. No spills.  The channels a lane owns (KC loads of 1 fp32 or 2 bf16
+//     values, 32 lanes apart) are a compile-time count, one instantiation
+//     per KC, so every accumulator index is a constant; d stays a runtime
+//     argument up to 256.  A lane reads all KC loads of a row, past d into
+//     the tile's slack, and stores only channels below d.
+// What is left: each valid tap costs a warp its loads and FMAs plus an
+// address add, and each query a tap setup on top, so the kernel is bound
+// by instruction issue, above both floors (PERF.md).  bf16 pays two more
+// instructions per load to widen the pair to fp32.
 
+#include <cuda.h>  // CUtensorMap; the encoder comes through the runtime
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int kWarps = 8;
-constexpr int kQueriesPerBlock = 64;
-constexpr int kMaxChannelsPerLane = 8;
+constexpr int kConsumerWarps = 24;
+constexpr int kThreads = (kConsumerWarps + 1) * 32;
+constexpr int kPointsPerStep = 8;  // x 4 taps = one warp
+constexpr int kMaxStages = 2;
+constexpr int kMaxHeadDim = 256;
+// Shared memory: [full and empty mbarriers | one 32-entry tap list per
+// consumer warp | stage 0 | stage 1].  ops/deform_cuda.py mirrors
+// kHeaderBytes as HEADER_BYTES.
+constexpr int kBarrierBytes = 128;
+constexpr int kTapListBytes = 32 * 8;
+constexpr int kHeaderBytes = kBarrierBytes + kConsumerWarps * kTapListBytes;
 
-__device__ __forceinline__ float load_f32(const float* p) { return *p; }
-__device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
+struct Params {
+  const void* value;
+  const float* loc;
+  const float* weight;
+  void* out;
+  int H, W, heads, d, nq, P;
+  int chunk, n_items, items_per_cta, stages, row_stride, stage_bytes, tma;
+};
+
+// values a lane loads at once: one fp32, or a bf16 pair
+template <typename T> struct LaneVals;
+template <> struct LaneVals<float> { static constexpr int kN = 1; };
+template <> struct LaneVals<__nv_bfloat16> { static constexpr int kN = 2; };
+
+__device__ __forceinline__ void load_vals(const float* p, float (&v)[1]) {
+  v[0] = *p;
 }
-__device__ __forceinline__ void store_f32(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store_f32(__nv_bfloat16* p, float v) {
+__device__ __forceinline__ void load_vals(const __nv_bfloat16* p,
+                                          float (&v)[2]) {
+  const float2 f =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+  v[0] = f.x;
+  v[1] = f.y;
+}
+__device__ __forceinline__ void store_val(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_val(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kWarps * 32)
-deform_attn_2d_kernel(const T* __restrict__ value,
-                      const float* __restrict__ loc,
-                      const float* __restrict__ weight,
-                      T* __restrict__ out,
-                      int H, int W, int heads, int d, int nq, int P) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* vs = reinterpret_cast<T*>(smem_raw);
-
-  const int tile = blockIdx.x;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int hw = H * W;
-
-  // stage V[b, :, h, :] as (hw, d): value is (bs, hw, heads, d)
-  const T* vsrc = value + ((size_t)b * hw * heads + h) * d;
-  const size_t row_stride = (size_t)heads * d;
-  for (int i = threadIdx.x; i < hw * d; i += blockDim.x) {
-    const int r = i / d;
-    const int c = i - r * d;
-    vs[i] = vsrc[r * row_stride + c];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
+                                                      uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Returns once the phase of the given parity has completed.  A wait that
+// outlasts 2^26 tries (each try suspends the thread for a while; seconds
+// in all, where a tile takes microseconds) traps, so a fault in the
+// barrier protocol ends the launch with an error instead of hanging it.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done;
+  for (uint32_t tries = 0;; ++tries) {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.b32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (tries == (1u << 26)) __trap();
   }
-  __syncthreads();
+}
+// TMA copy of the box at (c0, c1, c2, c3) of a 4D tensor map into `dst`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
+                                            int c0, int c1, int c2, int c3,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(smem_u32(bar))
+      : "memory");
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int nk = (d + 31) >> 5;
-  const float fW = (float)W;
-  const float fH = (float)H;
-  const int q_end = min(nq, (tile + 1) * kQueriesPerBlock);
+// The row `off` bytes past `vs`, the lane's first value in the tile.
+template <typename T>
+__device__ __forceinline__ const T* row_at(const T* vs, int off) {
+  return reinterpret_cast<const T*>(reinterpret_cast<const char*>(vs) + off);
+}
 
-  for (int q = tile * kQueriesPerBlock + warp; q < q_end; q += kWarps) {
-    float acc[kMaxChannelsPerLane];
+// acc += w_i * V[row_i, lane's channels] for four taps (byte offset, weight
+// bits).  All loads are issued before the FMAs.
+template <typename T, int KC>
+__device__ __forceinline__ void gather4(const T* vs, int4 t01, int4 t23,
+                                        float (&acc)[KC * LaneVals<T>::kN]) {
+  constexpr int kN = LaneVals<T>::kN;
+  const T* row[4] = {row_at(vs, t01.x), row_at(vs, t01.z),
+                     row_at(vs, t23.x), row_at(vs, t23.z)};
+  const float w[4] = {__int_as_float(t01.y), __int_as_float(t01.w),
+                      __int_as_float(t23.y), __int_as_float(t23.w)};
+  float v[4][KC][kN];
 #pragma unroll
-    for (int k = 0; k < kMaxChannelsPerLane; ++k) acc[k] = 0.f;
-
-    const size_t qh = ((size_t)b * nq + q) * heads + h;
-    const float* lq = loc + qh * P * 2;
-    const float* wq = weight + qh * P;
-
-    for (int p0 = 0; p0 < P; p0 += 32) {
-      const int np = min(32, P - p0);
-      float lx = 0.f, ly = 0.f, lw = 0.f;
-      if (lane < np) {
-        lx = lq[(p0 + lane) * 2];
-        ly = lq[(p0 + lane) * 2 + 1];
-        lw = wq[p0 + lane];
-      }
-      for (int j = 0; j < np; ++j) {
-        const float x = __shfl_sync(0xffffffffu, lx, j) * fW - 0.5f;
-        const float y = __shfl_sync(0xffffffffu, ly, j) * fH - 0.5f;
-        const float aw = __shfl_sync(0xffffffffu, lw, j);
-        const float x0 = floorf(x);
-        const float y0 = floorf(y);
-        // tap validity in float; a NaN location fails every test
-        const bool okx0 = x0 >= 0.f && x0 <= fW - 1.f;
-        const bool okx1 = x0 >= -1.f && x0 <= fW - 2.f;
-        const bool oky0 = y0 >= 0.f && y0 <= fH - 1.f;
-        const bool oky1 = y0 >= -1.f && y0 <= fH - 2.f;
-        if (!((okx0 || okx1) && (oky0 || oky1))) continue;
-        // x0 in [-1, W - 1] and y0 in [-1, H - 1] here: the casts are safe
-        const int ix = (int)x0;
-        const int iy = (int)y0;
-        const float ax = x - x0;
-        const float ay = y - y0;
-        const float w00 = (oky0 && okx0) ? aw * (1.f - ay) * (1.f - ax) : 0.f;
-        const float w01 = (oky0 && okx1) ? aw * (1.f - ay) * ax : 0.f;
-        const float w10 = (oky1 && okx0) ? aw * ay * (1.f - ax) : 0.f;
-        const float w11 = (oky1 && okx1) ? aw * ay * ax : 0.f;
-        // rows of the valid taps; an invalid tap's row is never read
-        const T* r00 = vs + (size_t)(iy * W + ix) * d;
-        const T* r10 = r00 + (size_t)W * d;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int k = 0; k < kMaxChannelsPerLane; ++k) {
-          const int c = lane + 32 * k;
-          if (k < nk && c < d) {
-            float s = 0.f;
-            if (oky0) {
-              if (okx0) s += w00 * load_f32(r00 + c);
-              if (okx1) s += w01 * load_f32(r00 + d + c);
-            }
-            if (oky1) {
-              if (okx0) s += w10 * load_f32(r10 + c);
-              if (okx1) s += w11 * load_f32(r10 + d + c);
-            }
-            acc[k] += s;
-          }
-        }
-      }
-    }
-
-    T* orow = out + ((size_t)b * nq + q) * heads * d + (size_t)h * d;
+    for (int k = 0; k < KC; ++k) load_vals(row[i] + 32 * kN * k, v[i][k]);
 #pragma unroll
-    for (int k = 0; k < kMaxChannelsPerLane; ++k) {
-      const int c = lane + 32 * k;
-      if (k < nk && c < d) store_f32(orow + c, acc[k]);
-    }
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int k = 0; k < KC; ++k)
+#pragma unroll
+      for (int e = 0; e < kN; ++e)
+        acc[k * kN + e] = fmaf(w[i], v[i][k][e], acc[k * kN + e]);
+}
+
+template <typename T, int KC>
+__device__ __forceinline__ void gather1(const T* vs, int2 t,
+                                        float (&acc)[KC * LaneVals<T>::kN]) {
+  constexpr int kN = LaneVals<T>::kN;
+  const float w = __int_as_float(t.y);
+  const T* row = row_at(vs, t.x);
+#pragma unroll
+  for (int k = 0; k < KC; ++k) {
+    float v[kN];
+    load_vals(row + 32 * kN * k, v);
+#pragma unroll
+    for (int e = 0; e < kN; ++e)
+      acc[k * kN + e] = fmaf(w, v[e], acc[k * kN + e]);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* value, const void* loc, const void* weight,
-                   void* out, int bs, int H, int W, int heads, int d, int nq,
-                   int P, cudaStream_t stream) {
-  const size_t smem = (size_t)H * W * d * sizeof(T);
-  cudaError_t err = cudaFuncSetAttribute(
-      deform_attn_2d_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+template <typename T, int KC>
+__global__ void __launch_bounds__(kThreads, 1)
+    deform_attn_2d_kernel(const __grid_constant__ CUtensorMap vmap,
+                          const Params prm) {
+  constexpr int kN = LaneVals<T>::kN;
+  extern __shared__ __align__(128) unsigned char smem[];
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem);
+  uint64_t* empty = full + kMaxStages;
+  unsigned char* tiles = smem + kHeaderBytes;
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int stages = prm.stages;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(&full[s], 32);  // the producer's lanes
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  const int heads = prm.heads, d = prm.d, nq = prm.nq;
+  const int hw = prm.H * prm.W;
+  // This CTA's run of items [i0, i1) covers the (slot, head) pairs
+  // first..last: queries [q_first, nq) of `first`, all of the pairs
+  // between, and [0, q_last) of `last`.
+  const int chunks = (nq + prm.chunk - 1) / prm.chunk;
+  const int i0 = blockIdx.x * prm.items_per_cta;
+  const int i1 = min(prm.n_items, i0 + prm.items_per_cta);
+  const int first = i0 / chunks;
+  const int last = (i1 - 1) / chunks;
+  const int q_first = (i0 - first * chunks) * prm.chunk;
+  const int q_last = min(nq, (i1 - last * chunks) * prm.chunk);
+
+  if (warp == kConsumerWarps) {
+    // ---- producer: stage V[b, :, h, :] of each pair into the ring ----
+    const T* value = static_cast<const T*>(prm.value);
+    const size_t src_row = static_cast<size_t>(heads) * d;
+    const uint32_t tile_bytes = static_cast<uint32_t>(hw * d * sizeof(T));
+    for (int pair = first; pair <= last; ++pair) {
+      const int j = pair - first;
+      const int s = j % stages;
+      if (j >= stages) mbar_wait(&empty[s], (j / stages - 1) & 1);
+      T* dst = reinterpret_cast<T*>(tiles + static_cast<size_t>(s) *
+                                                prm.stage_bytes);
+      const int b = pair / heads;
+      const int h = pair - b * heads;
+      if (prm.tma) {
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[s], tile_bytes);
+          tma_load_4d(dst, &vmap, 0, h, 0, b * prm.H, &full[s]);
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      } else {
+        const T* src = value + (static_cast<size_t>(b) * hw * heads + h) * d;
+#pragma unroll 4
+        for (int i = lane; i < hw * d; i += 32) {
+          const int r = i / d;
+          const int c = i - r * d;
+          dst[static_cast<size_t>(r) * prm.row_stride + c] =
+              src[r * src_row + c];
+        }
+        mbar_arrive(&full[s]);  // release: orders this lane's stores
+      }
+    }
+    return;
+  }
+
+  // ---- consumers ----
+  int2* taps = reinterpret_cast<int2*>(smem + kBarrierBytes) + warp * 32;
+  const int4* taps4 = reinterpret_cast<const int4*>(taps);
+  const float2* loc2 = reinterpret_cast<const float2*>(prm.loc);
+  T* out = static_cast<T*>(prm.out);
+  const float fW = static_cast<float>(prm.W);
+  const float fH = static_cast<float>(prm.H);
+  const int P = prm.P;
+  // A step is one query's group of 8 points; a query has `steps` of them.
+  // A warp walks its steps in blocks of four.
+  const int steps = max(1, (P + kPointsPerStep - 1) / kPointsPerStep);
+  const int pt = lane >> 2;  // this lane's point within a step
+  const int dx = lane & 1;
+  const int dy = (lane >> 1) & 1;
+  const unsigned below = (1u << lane) - 1u;
+  const int row_bytes = prm.row_stride * static_cast<int>(sizeof(T));
+
+  for (int pair = first; pair <= last; ++pair) {
+    const int j = pair - first;
+    const int s = j % stages;
+    const int b = pair / heads;
+    const int h = pair - b * heads;
+    const int q_end = pair == last ? q_last : nq;
+
+    // locations and weights of (slot b, query 0, head h); a query's are
+    // heads * P further on
+    const size_t qh0 = (static_cast<size_t>(b) * nq * heads + h) * P;
+    const float2* loc_bh = loc2 + qh0;
+    const float* w_bh = prm.weight + qh0;
+    const int q_stride = heads * P;
+    T* out_bh = out + (static_cast<size_t>(b) * nq * heads + h) * d;
+    // Lane 8i + p loads point p of step i of the block that starts at
+    // step (bq, bg): query bq, point group bg.
+    auto load_block = [&](int bq, int bg, float2& l, float& w) {
+      int lq = bq, lg = bg + (lane >> 3);
+      if (steps == 1) {
+        lq += lg * kConsumerWarps;
+        lg = 0;
+      } else {
+        lq += (lg / steps) * kConsumerWarps;
+        lg %= steps;
+      }
+      const int p = lg * kPointsPerStep + (lane & 7);
+      if (lq < q_end && p < P) {
+        const size_t o = static_cast<size_t>(lq) * q_stride + p;
+        l = __ldg(loc_bh + o);
+        w = __ldg(w_bh + o);
+      }
+    };
+    int bq = (pair == first ? q_first : 0) + warp;
+    int bg = 0;
+    float2 cur_loc = make_float2(0.f, 0.f), next_loc = cur_loc;
+    float cur_w = 0.f, next_w = 0.f;
+    load_block(bq, bg, cur_loc, cur_w);  // before the wait: overlaps it
+    mbar_wait(&full[s], (j / stages) & 1);
+    const T* vs = reinterpret_cast<const T*>(
+                      tiles + static_cast<size_t>(s) * prm.stage_bytes) +
+                  lane * kN;
+
+    float acc[KC * kN];
+#pragma unroll
+    for (int k = 0; k < KC * kN; ++k) acc[k] = 0.f;
+
+    while (bq < q_end) {
+      const int ahead = steps == 1 ? 4 : (bg + 4) / steps;
+      const int nbq = bq + ahead * kConsumerWarps;
+      const int nbg = steps == 1 ? 0 : (bg + 4) % steps;
+      load_block(nbq, nbg, next_loc, next_w);
+      int q = bq, g = bg;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (q >= q_end) break;
+        const int src = i * 8 + pt;
+        const float lx = __shfl_sync(0xffffffffu, cur_loc.x, src);
+        const float ly = __shfl_sync(0xffffffffu, cur_loc.y, src);
+        const float aw = __shfl_sync(0xffffffffu, cur_w, src);
+        const int p = g * kPointsPerStep + pt;
+
+        // this lane's tap; the bounds are tested in float, a NaN fails them
+        const float x = __fsub_rn(__fmul_rn(lx, fW), 0.5f);
+        const float y = __fsub_rn(__fmul_rn(ly, fH), 0.5f);
+        const float x0 = floorf(x);
+        const float y0 = floorf(y);
+        const float xt = x0 + static_cast<float>(dx);
+        const float yt = y0 + static_cast<float>(dy);
+        const bool ok = p < P && xt >= 0.f && xt <= fW - 1.f && yt >= 0.f &&
+                        yt <= fH - 1.f;
+        const float ax = x - x0;
+        const float ay = y - y0;
+        const float tw = aw * (dy ? ay : 1.f - ay) * (dx ? ax : 1.f - ax);
+        const unsigned mask = __ballot_sync(0xffffffffu, ok);
+        if (ok)  // xt, yt are in range here: the casts are exact
+          taps[__popc(mask & below)] = make_int2(
+              (static_cast<int>(yt) * prm.W + static_cast<int>(xt)) *
+                  row_bytes,
+              __float_as_int(tw));
+        __syncwarp();
+        const int n = __popc(mask);
+        int k = 0;
+        for (; k + 4 <= n; k += 4)
+          gather4<T, KC>(vs, taps4[k >> 1], taps4[(k >> 1) + 1], acc);
+        for (; k < n; ++k) gather1<T, KC>(vs, taps[k], acc);
+        __syncwarp();  // the list is rewritten next step
+
+        if (g == steps - 1) {
+          T* orow = out_bh + static_cast<size_t>(q) * heads * d;
+#pragma unroll
+          for (int kc = 0; kc < KC; ++kc)
+#pragma unroll
+            for (int e = 0; e < kN; ++e) {
+              const int c = (lane + 32 * kc) * kN + e;
+              if (c < d) store_val(orow + c, acc[kc * kN + e]);
+              acc[kc * kN + e] = 0.f;
+            }
+          g = 0;
+          q += kConsumerWarps;
+        } else {
+          ++g;
+        }
+      }
+      cur_loc = next_loc;
+      cur_w = next_w;
+      bq = nbq;
+      bg = nbg;
+    }
+    // every consumer warp waits for every tile before it releases it, so
+    // no warp can arrive twice within one phase of `empty`
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+}
+
+template <typename T, int KC>
+cudaError_t launch(const CUtensorMap& vmap, const Params& prm, int ctas,
+                   int smem_bytes, cudaStream_t stream) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      deform_attn_2d_kernel<T, KC>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
-  const dim3 grid((nq + kQueriesPerBlock - 1) / kQueriesPerBlock, heads, bs);
-  deform_attn_2d_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(value), static_cast<const float*>(loc),
-      static_cast<const float*>(weight), static_cast<T*>(out), H, W, heads,
-      d, nq, P);
+  deform_attn_2d_kernel<T, KC>
+      <<<ctas, kThreads, smem_bytes, stream>>>(vmap, prm);
   return cudaGetLastError();
+}
+
+cudaError_t launch_f32(const CUtensorMap& m, const Params& prm, int kc,
+                       int ctas, int smem, cudaStream_t st) {
+  switch (kc) {
+    case 1: return launch<float, 1>(m, prm, ctas, smem, st);
+    case 2: return launch<float, 2>(m, prm, ctas, smem, st);
+    case 3: return launch<float, 3>(m, prm, ctas, smem, st);
+    case 4: return launch<float, 4>(m, prm, ctas, smem, st);
+    case 5: return launch<float, 5>(m, prm, ctas, smem, st);
+    case 6: return launch<float, 6>(m, prm, ctas, smem, st);
+    case 7: return launch<float, 7>(m, prm, ctas, smem, st);
+    case 8: return launch<float, 8>(m, prm, ctas, smem, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+cudaError_t launch_bf16(const CUtensorMap& m, const Params& prm, int kc,
+                        int ctas, int smem, cudaStream_t st) {
+  switch (kc) {
+    case 1: return launch<__nv_bfloat16, 1>(m, prm, ctas, smem, st);
+    case 2: return launch<__nv_bfloat16, 2>(m, prm, ctas, smem, st);
+    case 3: return launch<__nv_bfloat16, 3>(m, prm, ctas, smem, st);
+    case 4: return launch<__nv_bfloat16, 4>(m, prm, ctas, smem, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
+                                  cuuint32_t, void*, const cuuint64_t*,
+                                  const cuuint64_t*, const cuuint32_t*,
+                                  const cuuint32_t*, CUtensorMapInterleave,
+                                  CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                  CUtensorMapFloatOOBfill);
+
+// Describes value (bs, H*W, heads, d) as the 4D tensor (d, heads, W, bs*H),
+// innermost first, whose box (d, 1, W, H) is one (slot, head) tile.  The
+// driver's encoder comes through the runtime, so the library links no
+// driver library.
+cudaError_t encode_value_map(CUtensorMap* map, const void* value, int bf16,
+                             int bs, int H, int W, int heads, int d) {
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess) return err;
+    if (found != cudaDriverEntryPointSuccess || fn == nullptr)
+      return cudaErrorNotSupported;
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  const cuuint64_t elt = bf16 ? 2 : 4;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(W),
+                              static_cast<cuuint64_t>(bs) * H};
+  const cuuint64_t strides[3] = {d * elt, heads * d * elt,
+                                 static_cast<cuuint64_t>(W) * heads * d * elt};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(d), 1,
+                             static_cast<cuuint32_t>(W),
+                             static_cast<cuuint32_t>(H)};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapDataType type = bf16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUresult res = encode(
+      map, type, 4, const_cast<void*>(value), dims, strides, box, unit,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Plain C entry point, bound with ctypes.  value (bs, H*W, heads, d) fp32 or
-// bf16; loc (bs, nq, heads, 1, P, 2) fp32; weight (bs, nq, heads, 1, P)
-// fp32; out (bs, nq, heads*d) in the value type.  All contiguous, all on
-// the current device.  Returns cudaGetLastError() after the launch.
+// bf16; loc (bs, nq, heads, 1, P, 2) fp32, 8-byte aligned; weight
+// (bs, nq, heads, 1, P) fp32; out (bs, nq, heads*d) in the value type.  All
+// contiguous, all on the current device.  chunk .. smem_bytes are the launch
+// plan of ops/deform_cuda.plan_launch.  Returns cudaErrorInvalidValue for a
+// plan or shape the kernel does not take, else cudaGetLastError() after the
+// launch.
 extern "C" int deform_attn_2d_forward(const void* value, const void* loc,
                                       const void* weight, void* out, int bs,
                                       int H, int W, int heads, int d, int nq,
-                                      int P, int value_is_bf16,
+                                      int P, int value_is_bf16, int chunk,
+                                      int n_items, int items_per_cta, int ctas,
+                                      int stages, int row_stride,
+                                      int stage_bytes, int smem_bytes,
                                       void* stream) {
+  const long long elt = value_is_bf16 ? 2 : 4;
+  const int lane_vals = value_is_bf16 ? 2 : 1;
+  if (bs < 1 || H < 1 || W < 1 || heads < 1 || nq < 1 || P < 0 || d < 1 ||
+      d > kMaxHeadDim || chunk < 1 || items_per_cta < 1 || ctas < 1 ||
+      stages < 1 || stages > kMaxStages ||
+      reinterpret_cast<uintptr_t>(loc) % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int kc = (d + 32 * lane_vals - 1) / (32 * lane_vals);
+  const long long chunks = (nq + chunk - 1) / chunk;
+  const long long hw = static_cast<long long>(H) * W;
+  if (n_items != static_cast<long long>(bs) * heads * chunks ||
+      static_cast<long long>(ctas) * items_per_cta < n_items ||
+      static_cast<long long>(ctas - 1) * items_per_cta >= n_items ||
+      row_stride < d || (row_stride * elt) % 4 != 0 ||
+      stage_bytes % 128 != 0 ||
+      (hw - 1) * row_stride * elt + 128LL * kc > stage_bytes ||
+      kHeaderBytes + static_cast<long long>(stages) * stage_bytes > smem_bytes)
+    return static_cast<int>(cudaErrorInvalidValue);
+
+  Params prm;
+  prm.value = value;
+  prm.loc = static_cast<const float*>(loc);
+  prm.weight = static_cast<const float*>(weight);
+  prm.out = out;
+  prm.H = H;
+  prm.W = W;
+  prm.heads = heads;
+  prm.d = d;
+  prm.nq = nq;
+  prm.P = P;
+  prm.chunk = chunk;
+  prm.n_items = n_items;
+  prm.items_per_cta = items_per_cta;
+  prm.stages = stages;
+  prm.row_stride = row_stride;
+  prm.stage_bytes = stage_bytes;
+  // the TMA unit takes 16-byte rows at 16-byte addresses, boxes <= 256
+  prm.tma = (d * elt) % 16 == 0 && row_stride == d && H <= 256 && W <= 256 &&
+            reinterpret_cast<uintptr_t>(value) % 16 == 0;
+  alignas(64) CUtensorMap vmap = {};
+  if (prm.tma) {
+    const cudaError_t err =
+        encode_value_map(&vmap, value, value_is_bf16, bs, H, W, heads, d);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      value_is_bf16
-          ? launch<__nv_bfloat16>(value, loc, weight, out, bs, H, W, heads,
-                                  d, nq, P, s)
-          : launch<float>(value, loc, weight, out, bs, H, W, heads, d, nq, P,
-                          s);
+      value_is_bf16 ? launch_bf16(vmap, prm, kc, ctas, smem_bytes, s)
+                    : launch_f32(vmap, prm, kc, ctas, smem_bytes, s);
   return static_cast<int>(err);
 }
