@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's VER volume path once on one NVIDIA GPU.
+"""Drive the PyTorch port's VER volume path and its full forward and eval
+path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,8 +9,8 @@ Phases (any failure exits nonzero, nothing is caught):
   2. build the CUDA kernels from vln_ver_tpu_torch/csrc, time the build and
      print ptxas's registers and spills for every instantiation;
   3. hold the deformable-attention kernel against its plain PyTorch version
-     at the full main-path shape (fp32 and bf16) and at the edges of its
-     launch plan: a 10x20 map, bs=1, nq=57 and 901, B=8, one V stage
+     at the full main-path shape (fp32 and bf16), at the eval path's
+     (batch 2, phase 6) and at the edges of its launch plan: a 10x20 map, bs=1, nq=57 and 901, B=8, one V stage
      (d=256), rows the TMA unit cannot take (d=3), far-out locations;
   4. run the main path as get_occ does (configs/verformer/get_occ.py, random
      weights from seed 0, 16 synthetic viewpoints, batch 4): the lift, the
@@ -22,12 +23,25 @@ Phases (any failure exits nonzero, nothing is caught):
      wrapper's host time is left out; and over eager launches, as a caller
      sees it) and its plain version at batch 1 and batch 4 of the main
      path's shapes, print each timed launch's plan, the bytes bound and the
-     shared-memory floor, and the ``kernels`` line.
+     shared-memory floor;
+  6. run the full forward and the eval path as ``python -m
+     vln_ver_tpu_torch.test`` does (configs/verformer/vocc.py at full
+     width, the same random weights from seed 0, 8 synthetic viewpoints
+     with ground truth at the full 35 x 120 x 120 occupancy grid, built in
+     memory, batch 2): the kernel's launch count must be 3 per batch,
+     every metric finite and in range, the head outputs of the right
+     shapes, and one eval batch's outputs must match a CPU run of the same
+     weights (vocc.py widths on the 0.2 m occupancy grid: the CPU takes
+     minutes for the full grid).  Print viewpoints/s, peak device memory, the
+     device time of each stage (CUDA events around the stage's modules),
+     the device's busy share and its largest kernels, then the
+     ``kernels`` line.
 The last line is the ``{"ok": true, "device": ...}`` JSON object.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import re
@@ -47,6 +61,8 @@ SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
 
 N_VIEWPOINTS = 16
 BATCH = 4
+# phase 6: synthetic viewpoints with ground truth, eval batch
+EVAL_SCANS, EVAL_VPS_PER_SCAN, EVAL_BATCH = 2, 4, 2
 
 
 def fail(msg: str) -> None:
@@ -219,6 +235,220 @@ def breakdown(run_main_path, bev_only, feats, w2p, shift, ver, card):
               f"x{e.count:<4d} {e.key[:90]}")
 
 
+def stage_times(stages, run):
+    """Device ms of each named group of modules over one call of ``run``:
+    a CUDA event recorded before and after every call of those modules,
+    the spans summed per group."""
+    import torch
+    spans = {name: [] for name in stages}
+    handles = []
+    for name, modules in stages.items():
+        def pre(mod, args, name=name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            spans[name].append([ev, None])
+
+        def post(mod, args, out, name=name):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            spans[name][-1][1] = ev
+
+        for m in modules:
+            handles += [m.register_forward_pre_hook(pre),
+                        m.register_forward_hook(post)]
+    try:
+        run()
+    finally:
+        for h in handles:
+            h.remove()
+    torch.cuda.synchronize()
+    return {name: sum(a.elapsed_time(b) for a, b in evs)
+            for name, evs in spans.items()}
+
+
+def full_forward_and_eval(model, ver, card) -> int:
+    """Phase 6; returns the kernel's launches over the eval run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vln_ver_tpu_torch.config import build_ver_config, load_config
+    from vln_ver_tpu_torch.data import synthetic_samples
+    from vln_ver_tpu_torch.evaluation.runner import (decode_outputs,
+                                                     evaluate_model,
+                                                     occupancy_hists)
+    from vln_ver_tpu_torch.models import build_model
+    from vln_ver_tpu_torch.occupancy import decode_occupancy
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL
+
+    dev = torch.device("cuda")
+    cfg = load_config(os.path.join(REPO, "configs/verformer/vocc.py"))
+    vocc = build_ver_config(cfg)
+    # get_occ.py differs from vocc.py only in its dump target, so the
+    # phase-4 weights are the vocc.py model's
+    if vocc != ver:
+        fail("configs/verformer/vocc.py and get_occ.py build different "
+             "models")
+    classes = tuple(cfg["data"]["test"].get("classes", ()))
+    occ_dims = (ver.occ_zdim, ver.occ_ydim, ver.occ_xdim)
+    t0 = time.perf_counter()
+    samples = synthetic_samples(
+        EVAL_SCANS, EVAL_VPS_PER_SCAN, num_cams=ver.num_cams,
+        feat_hw=ver.feat_h, feat_dim=ver.in_channels, occ_dims=occ_dims,
+        pc_range=ver.pc_range)
+    n = len(samples)
+    print(f"eval data: {n} synthetic viewpoints, occupancy {occ_dims}, in "
+          f"{time.perf_counter() - t0:.2f}s")
+
+    def run_eval(subset):
+        return evaluate_model(model, subset, occ_thresholds=(0.25,),
+                              batch_size=EVAL_BATCH, classes=classes)
+
+    run_eval(samples[:EVAL_BATCH])    # warm-up: allocator, cuBLAS, cuDNN
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.launches = 0
+    t0 = time.perf_counter()
+    metrics = run_eval(samples)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = KERNEL.launches
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    n_batches = -(-n // EVAL_BATCH)
+    if launches != ver.encoder_layers * n_batches:
+        fail(f"deform_attn_2d launched {launches} times in the eval run, "
+             f"expected {ver.encoder_layers} x {n_batches} batches")
+    for k, v in metrics.items():
+        if not np.isfinite(v):
+            fail(f"eval metric {k} = {v}")
+    for k in ("miou", "iou"):                       # percent
+        if not 0.0 <= metrics[k] <= 100.0:
+            fail(f"eval metric {k} = {metrics[k]} outside [0, 100]")
+    for k in ("occ_precision", "occ_recall"):
+        if not 0.0 <= metrics[k] <= 1.0:
+            fail(f"eval metric {k} = {metrics[k]} outside [0, 1]")
+    if not any(k.startswith("mAP_") for k in metrics):
+        fail("the eval run computed no detection mAP")
+    print("eval metrics: " + json.dumps(metrics, sort_keys=True))
+    print(f"eval: {n} viewpoints in {eval_s:.4f}s = {n / eval_s:.3f} "
+          f"viewpoints/s at batch {EVAL_BATCH} (features on the host -> "
+          f"metrics), peak device memory {peak_mib:.1f} MiB, deform "
+          f"launches {launches} [{card}]")
+
+    def batch_inputs(sl, device):
+        return [torch.from_numpy(np.stack([s[k] for s in samples[sl]]))
+                .to(device) for k in ("features", "world2pixel",
+                                      "origin_shift")]
+
+    # the head outputs' shapes at full width
+    with torch.inference_mode():
+        outs = model(*batch_inputs(slice(0, EVAL_BATCH), dev))
+        want = {"all_cls_scores": (ver.decoder_layers, EVAL_BATCH,
+                                   ver.num_query, ver.num_classes),
+                "all_bbox_preds": (ver.decoder_layers, EVAL_BATCH,
+                                   ver.num_query, ver.code_size),
+                "occupancy_preds": (EVAL_BATCH, ver.voxel_num,
+                                    ver.occupancy_classes),
+                "bev_embed": (EVAL_BATCH, ver.bev_num, ver.embed_dims)}
+        for k, shape in want.items():
+            if tuple(outs[k].shape) != shape:
+                fail(f"{k} {tuple(outs[k].shape)}, want {shape}")
+            if not bool(torch.isfinite(outs[k]).all()):
+                fail(f"non-finite values in {k}")
+    print("full forward shapes: " + ", ".join(
+        f"{k} {tuple(outs[k].shape)}" for k in want))
+
+    # The CPU's transposed convolution took 319 s for one viewpoint of the
+    # full 35 x 120 x 120 grid on the card's host (8 cores), too long for
+    # this script, so the card is held against the CPU at vocc.py widths
+    # on the 0.2 m grid (18 x 60 x 60, two upsampler stages), at the eval
+    # batch: the kernel's launches then have the eval path's shape.
+    check = dataclasses.replace(ver, occupancy_size=(0.2, 0.2, 0.2))
+    with torch.inference_mode():
+        card1 = build_model(check, dev, seed=0)(
+            *batch_inputs(slice(0, EVAL_BATCH), dev))
+        torch.cuda.synchronize()
+        cpu_model = build_model(check, "cpu", seed=0)
+        t0 = time.perf_counter()
+        cpu1 = cpu_model(*batch_inputs(slice(0, EVAL_BATCH), "cpu"))
+        cpu_s = time.perf_counter() - t0
+    grid = (check.occ_zdim, check.occ_ydim, check.occ_xdim)
+    tolerance = {"bev_embed": (1e-4, 1e-4), "all_cls_scores": (1e-4, 1e-4),
+                 "all_bbox_preds": (1e-4, 1e-4),
+                 "occupancy_preds": (1e-4, 5e-4)}
+    for k, (rtol, atol) in tolerance.items():
+        err, ok = close(card1[k].cpu(), cpu1[k], rtol, atol)
+        print(f"{k} card vs CPU ({EVAL_BATCH} viewpoints, vocc.py widths, "
+              f"occupancy grid {grid}): max_abs_err={err:.3e} (rtol={rtol}, "
+              f"atol={atol}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"card {k} disagrees with the CPU run")
+    same = (decode_occupancy(card1["occupancy_preds"].cpu(), 0.25)
+            == decode_occupancy(cpu1["occupancy_preds"], 0.25))
+    share = float(same.float().mean())
+    print(f"decoded occupancy labels card vs CPU: {100 * share:.4f}% "
+          f"equal (need >= 99.99%); the CPU forward took {cpu_s:.2f}s")
+    if share < 0.9999:
+        fail("decoded occupancy labels of card and CPU differ")
+
+    # where the time goes: device time per stage at batch EVAL_BATCH
+    head = model.pts_bbox_head
+    inputs = batch_inputs(slice(0, EVAL_BATCH), dev)
+    gt = torch.from_numpy(np.stack(
+        [s["occ_dense"] for s in samples[:EVAL_BATCH]])).to(dev)
+    weight = torch.from_numpy(np.stack(
+        [s["occ_visible"] for s in samples[:EVAL_BATCH]])).to(dev)
+    stages = {"encoder": [head.transformer.encoder],
+              "decoder with branches": [head.transformer.decoder,
+                                        *head.cls_branches],
+              "upsampler": [head.up_sample],
+              "occupancy projection and MLP": [head.occ_proj,
+                                               head.occ_branches]}
+
+    last = {}
+
+    def one_batch():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        with torch.inference_mode():
+            ev[0].record()
+            o = model(*inputs)
+            ev[1].record()
+            decode_outputs(o, ver)
+            occupancy_hists(o["occupancy_preds"], gt, weight, (0.25,), ver)
+            ev[2].record()
+        torch.cuda.synchronize()
+        last["forward"] = ev[0].elapsed_time(ev[1])
+        last["decode and histogram"] = ev[1].elapsed_time(ev[2])
+
+    one_batch()
+    times = stage_times(stages, one_batch)
+    times["decode and histogram"] = last["decode and histogram"]
+    print(f"device time per batch of {EVAL_BATCH} (CUDA events): forward "
+          f"{last['forward']:.3f} ms; " + ", ".join(
+              f"{k} {v:.3f} ms" for k, v in times.items()) + f" [{card}]")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_eval(samples[:2 * EVAL_BATCH])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")]
+    dev_us = sum(e.self_device_time_total for e in events)
+    if not dev_us:
+        print("eval device busy share: not measured (the profiler recorded "
+              "no device time)")
+        return launches
+    print(f"device busy share of the eval path: "
+          f"{100 * dev_us / 1e6 / wall:.1f}% of {1e3 * wall:.3f} ms wall "
+          f"({2 * EVAL_BATCH} viewpoints, profiled run) [{card}]")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        print(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
+              f"x{e.count:<4d} {e.key[:90]}")
+    return launches
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -277,6 +507,7 @@ def main() -> None:
     checks = [  # (name, bs, H, W, d, nq, dtype, loc range)
         ("main fp32 B=1", 6, 14, 14, 96, 900, f32, (-0.1, 1.1)),
         ("main bf16 B=1", 6, 14, 14, 96, 900, bf16, (-0.1, 1.1)),
+        ("eval B=2 fp32", 6 * EVAL_BATCH, 14, 14, 96, 900, f32, (-0.1, 1.1)),
         ("10x20 nq=57 fp32", 4, 10, 20, 96, 57, f32, (-0.1, 1.1)),
         ("bs=1 fp32", 1, 14, 14, 96, 900, f32, (-0.1, 1.1)),
         ("nq=901 fp32", 6, 14, 14, 96, 901, f32, (-0.1, 1.1)),
@@ -375,7 +606,8 @@ def main() -> None:
     with torch.inference_mode():
         bev_cpu = cpu_model(torch.from_numpy(feats[:BATCH]),
                             torch.from_numpy(w2p[:BATCH]),
-                            torch.from_numpy(shift[:BATCH]))["bev_embed"]
+                            torch.from_numpy(shift[:BATCH]),
+                            only_bev=True)["bev_embed"]
     err, ok = close(torch.from_numpy(bevs[0]), bev_cpu, 1e-4, 1e-4)
     print(f"bev_embed card vs CPU plain path (batch {BATCH}): "
           f"max_abs_err={err:.3e} (rtol=1e-4, atol=1e-4) "
@@ -416,6 +648,10 @@ def main() -> None:
                       f"floor {floor_ms:.4f} ms ({100 * floor_ms / ms:.1f}%)"
                       f" [{card}]")
     print("deform_attn_2d timed plans: " + json.dumps(plans))
+
+    # -- phase 6: full forward and eval ------------------------------------
+    launches_eval = full_forward_and_eval(model, ver, card)
+
     ms, eager_ms, plain_ms, bound_ms, bound_by, floor_ms = timing[
         "B=1 float32"]
     ms4, eager_ms4, plain_ms4, bound_ms4, _, floor_ms4 = timing[
@@ -426,6 +662,7 @@ def main() -> None:
         "source": "vln_ver_tpu_torch/csrc/deform_attn_2d.cu",
         "replaces": "vln_ver_tpu/ops/pallas_deform.py:38",
         "launches": launches,
+        "launches_eval": launches_eval,
         "max_abs_err": main_err,
         "ms": ms,
         "plain_ms": plain_ms,

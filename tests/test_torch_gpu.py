@@ -1,6 +1,7 @@
-"""The CUDA deformable-attention kernel against its plain version, on the
-card.  Marked ``gpu``; each test skips where there is no card (decided in
-the fixture, never at import, so every worker collects the same tests).
+"""The CUDA deformable-attention kernel against its plain version, and the
+port's VER dump, full forward and eval path on the card against the CPU.
+Marked ``gpu``; each test skips where there is no card (decided in the
+fixture, never at import, so every worker collects the same tests).
 
 This file imports neither JAX nor the JAX package, so it also runs on a
 host that has only PyTorch:
@@ -102,7 +103,9 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
 
 TINY = VERConfig(num_cams=3, feat_h=6, feat_w=6, in_channels=64,
                  embed_dims=64, num_heads=4, encoder_layers=2, ffn_dim=128,
-                 bev_z=2, bev_h=5, bev_w=5)
+                 bev_z=2, bev_h=5, bev_w=5, decoder_layers=2, num_query=12,
+                 num_classes=5, occupancy_classes=4, occ_dims=8,
+                 occupancy_size=(0.6, 0.6, 0.5))   # occupancy 7 x 20 x 20
 
 
 def _viewpoints(n, cfg=TINY, seed=0):
@@ -158,7 +161,7 @@ def test_pipelined_dump_on_card_matches_cpu(cuda, monkeypatch):
 
         @torch.inference_mode()
         def bev_only(f, m, s):
-            outs = model(f, m, s)
+            outs = model(f, m, s, only_bev=True)
             return outs["bev_embed"], outs["sca_overflow"]
 
         res = dump_volumes(bev_only, dataset, TINY, name, batch_size=3,
@@ -175,10 +178,80 @@ def test_tiny_model_on_card_matches_cpu(cuda):
     cfg = TINY
     feats, w2p, shift = map(torch.from_numpy, _viewpoints(2))
     with torch.inference_mode():
-        ref = build_model(cfg, "cpu")(feats, w2p, shift)["bev_embed"]
+        ref = build_model(cfg, "cpu")(feats, w2p, shift,
+                                      only_bev=True)["bev_embed"]
         before = KERNEL.launches
         got = build_model(cfg, cuda)(feats.to(cuda), w2p.to(cuda),
-                                     shift.to(cuda))["bev_embed"]
+                                     shift.to(cuda), only_bev=True)[
+                                         "bev_embed"]
         torch.cuda.synchronize()
     assert KERNEL.launches == before + cfg.encoder_layers
     torch.testing.assert_close(got.cpu(), ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("layout", ["zhwc", "zhwc_dense", "ref"])
+def test_full_forward_on_card_matches_cpu(cuda, layout):
+    import dataclasses
+    cfg = dataclasses.replace(TINY, occ_layout=layout, add_layout=True)
+    feats, w2p, shift = map(torch.from_numpy, _viewpoints(2))
+    with torch.inference_mode():
+        ref = build_model(cfg, "cpu")(feats, w2p, shift)
+        before = KERNEL.launches
+        got = build_model(cfg, cuda)(feats.to(cuda), w2p.to(cuda),
+                                     shift.to(cuda))
+        torch.cuda.synchronize()
+    assert KERNEL.launches == before + cfg.encoder_layers
+    assert got["occupancy_preds"].shape == (2, 7 * 20 * 20, 4)
+    for k in ("bev_embed", "all_cls_scores", "all_bbox_preds",
+              "all_layout_preds", "occupancy_preds"):
+        atol = 5e-4 if k == "occupancy_preds" else 1e-4
+        torch.testing.assert_close(got[k].cpu(), ref[k], rtol=1e-4,
+                                   atol=atol)
+
+
+def test_eval_on_card_matches_cpu(cuda):
+    """The eval loop with its decode and histogram on the card gives the
+    CPU's metrics (5 viewpoints at batch 2: a short final batch).  At
+    0.02 the threshold lies among the random model's scores, so a voxel
+    within rounding of it may decode differently: metrics to 1e-3."""
+    from vln_ver_tpu_torch.data import synthetic_samples
+    from vln_ver_tpu_torch.evaluation.runner import evaluate_model
+    samples = synthetic_samples(
+        1, 5, num_cams=TINY.num_cams, feat_hw=TINY.feat_h,
+        feat_dim=TINY.in_channels,
+        occ_dims=(TINY.occ_zdim, TINY.occ_ydim, TINY.occ_xdim))
+    metrics = {}
+    for device in ("cpu", cuda):
+        model = build_model(TINY, device)
+        before = KERNEL.launches
+        metrics[str(device)] = evaluate_model(
+            model, samples, occ_thresholds=(0.02, 0.25), batch_size=2)
+    assert KERNEL.launches == before + 3 * TINY.encoder_layers
+    cpu, card = metrics["cpu"], metrics[str(cuda)]
+    assert cpu.keys() == card.keys()
+    for k in cpu:
+        assert card[k] == pytest.approx(cpu[k], rel=1e-3, abs=1e-3), k
+
+
+def test_fp32_upsampler_on_card_is_not_tf32(cuda, monkeypatch):
+    """cuDNN's TF32 flag defaults to True and a library caller need not
+    clear it; an fp32 model must not take it.  At vocc.py's width (768
+    channels, 75 taps) TF32 misses the CPU's upsampler output by more than
+    this tolerance, and fp32 stays well inside it."""
+    import dataclasses
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    cfg = dataclasses.replace(TINY, in_channels=768, embed_dims=768,
+                              num_heads=8, ffn_dim=256)
+    feats, w2p, shift = map(torch.from_numpy, _viewpoints(1, cfg))
+    up = {}
+    for device in ("cpu", cuda):
+        model = build_model(cfg, device)
+        hook = model.pts_bbox_head.up_sample.register_forward_hook(
+            lambda mod, args, out, device=str(device): up.__setitem__(
+                device, out.cpu()))
+        with torch.inference_mode():
+            model(feats.to(device), w2p.to(device), shift.to(device))
+        hook.remove()
+    torch.testing.assert_close(up[str(cuda)], up["cpu"], rtol=1e-4,
+                               atol=1e-4)

@@ -47,8 +47,11 @@ def test_forbidden_names():
 def test_package_imports_without_h5py():
     code = ("import sys; sys.modules['h5py'] = None; "
             "import vln_ver_tpu_torch.get_occ, vln_ver_tpu_torch.ver_writer,"
-            " vln_ver_tpu_torch.data, vln_ver_tpu_torch.convert; "
-            "print('ok')")
+            " vln_ver_tpu_torch.data, vln_ver_tpu_torch.convert,"
+            " vln_ver_tpu_torch.test, vln_ver_tpu_torch.evaluation.runner; "
+            "from vln_ver_tpu_torch.data import synthetic_samples; "
+            "synthetic_samples(1, 1, num_cams=1, feat_hw=2, feat_dim=4, "
+            "occ_dims=(2, 4, 4)); print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -71,7 +71,7 @@ def weights():
     feats, w2p, shift = _inputs(1)
     params = JaxVoxelFormer(JCFG).init(
         jax.random.PRNGKey(0), jnp.asarray(feats), jnp.asarray(w2p),
-        jnp.asarray(shift), only_bev=True)["params"]
+        jnp.asarray(shift))["params"]
     params = _perturb(params, np.random.default_rng(1))
     sd, not_ported = state_dict_from_jax(params, TCFG)
     model = VoxelFormer(TCFG)
@@ -83,11 +83,8 @@ def test_state_dict_from_jax_maps_the_whole_encoder_path(weights):
     params, model, not_ported = weights
     assert set(model.state_dict()) == set(
         state_dict_from_jax(params, TCFG)[0])
-    # leaves of later slices only (here the decoder's query tables)
-    assert not_ported
-    assert not [k for k in not_ported
-                if "encoder" in k or "embeds" in k
-                or "voxel_embedding" in k]
+    # the full model is ported: no leaf of the JAX tree is left over
+    assert not not_ported
     k = ("pts_bbox_head.transformer.encoder.layers.0.attentions.0."
          "deformable_attention.value_proj.weight")
     np.testing.assert_array_equal(
@@ -192,16 +189,29 @@ def test_capacity_lift_is_refused():
         VoxelFormer(dataclasses.replace(TCFG, sca_query_capacity=16))
 
 
-def test_full_forward_is_refused(weights):
-    _, model, _ = weights
-    feats, w2p, shift = _inputs(1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(torch.from_numpy(feats), torch.from_numpy(w2p),
-              torch.from_numpy(shift), only_bev=False)
-
-
 def test_cuda_device_without_cuda_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         resolve_device("cuda")
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_fp32_forward_runs_without_tf32(weights, monkeypatch):
+    """An fp32 model's forward runs its matmuls and its upsampler's
+    convolutions in true fp32 whatever the caller left in the process-wide
+    TF32 flags (cuDNN's defaults to True), and puts the flags back."""
+    _, model, _ = weights
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    seen = []
+    hook = model.pts_bbox_head.up_sample.register_forward_pre_hook(
+        lambda mod, args: seen.append((torch.backends.cuda.matmul.allow_tf32,
+                                       torch.backends.cudnn.allow_tf32)))
+    try:
+        with torch.inference_mode():
+            model(*map(torch.from_numpy, _inputs(1)))
+    finally:
+        hook.remove()
+    assert seen == [(False, False)]
+    assert torch.backends.cuda.matmul.allow_tf32
+    assert torch.backends.cudnn.allow_tf32

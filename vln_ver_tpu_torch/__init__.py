@@ -1,7 +1,9 @@
 """PyTorch / CUDA port of vln_ver_tpu for NVIDIA Hopper.
 
 The JAX package ``vln_ver_tpu`` is the reference; this package imports
-nothing of it.  Slice 1 ports VER volume generation: the ``only_bev``
-forward of ``VoxelFormer`` and the HDF5 dump, with the deformable
-sampling in a hand-written CUDA kernel (``csrc/deform_attn_2d.cu``).
+nothing of it.  It ports VER volume generation (the ``only_bev`` forward of
+``VoxelFormer`` and the HDF5 dump, ``get_occ``) and the full forward with
+its eval path (decoder, branches, occupancy head, decode, metrics,
+``test``).  The encoder's deformable sampling runs in a hand-written CUDA
+kernel (``csrc/deform_attn_2d.cu``).
 """

@@ -5,9 +5,14 @@ what the JAX package's ``export_state_dict`` writes and what
 ``tools/export_voxelformer.py`` saves as a ``.pth``.  Two ways in:
 
 * :func:`state_dict_from_jax` maps a JAX (flax) parameter tree of numpy
-  arrays straight onto those names: Linear kernels transposed, LayerNorm
-  ``scale`` to ``weight``, plus the voxel, camera and level embeddings.
-* :func:`load_checkpoint` loads a reference-format ``.pth`` by name.
+  arrays straight onto those names, for every leaf of a non-temporal
+  VoxelFormer: Linear kernels transposed, LayerNorm ``scale`` to
+  ``weight``, the self-attention's per-projection q/k/v kernels packed
+  into ``in_proj_weight`` / ``in_proj_bias``, and the upsampler's
+  correlation kernels flipped and transposed into ``ConvTranspose3d``
+  weights.
+* :func:`load_checkpoint` loads a reference-format ``.pth`` by name,
+  strictly.
 """
 
 from __future__ import annotations
@@ -19,6 +24,13 @@ import torch
 from torch import nn
 
 from ..models.config import VERConfig
+from ..models.head import upsampler_stages
+
+# keys of a reference checkpoint with no forward semantics on the active
+# path: the dead image backbone and neck (the dataset supplies ViT
+# features, voxelformer.py:282-289) and a loss buffer
+_DEAD_PREFIXES = ("img_backbone.", "img_neck.")
+_DEAD_KEYS = ("pts_bbox_head.code_weights",)
 
 
 def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
@@ -32,27 +44,80 @@ def _flatten(tree: Mapping, prefix: str = "") -> Dict[str, np.ndarray]:
     return out
 
 
-def _encoder_mapping(cfg: VERConfig
-                     ) -> Dict[str, Tuple[str, Callable]]:
-    """JAX leaf path -> (reference state_dict key, numpy transform) for
-    every parameter on the encoder path."""
-    same = lambda a: a                                       # noqa: E731
-    transpose = lambda a: a.T                                # noqa: E731
+def _same(a):
+    return a
+
+
+def _transpose(a):
+    return a.T
+
+
+def _pack_qkv_kernels(q, k, v):
+    """flax (E, H, D) q/k/v kernels -> torch ``in_proj_weight`` (3E, E)."""
+    return np.concatenate([w.reshape(w.shape[0], -1).T for w in (q, k, v)])
+
+
+def _pack_qkv_biases(q, k, v):
+    return np.concatenate([b.reshape(-1) for b in (q, k, v)])
+
+
+def _mha_out_kernel(k):
+    """flax (H, D, E) output kernel -> torch (E, E) ``out_proj.weight``."""
+    return k.reshape(-1, k.shape[-1]).T
+
+
+def _conv_transpose_kernel(k):
+    """Correlation kernel (kD, kH, kW, in, out) -> ConvTranspose3d weight
+    (in, out, kD, kH, kW): a transposed convolution is the correlation
+    with the spatially flipped kernel."""
+    return k[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
+
+
+_KeyMap = Dict[str, Tuple[Tuple[str, ...], Callable]]
+
+
+def _mapping(cfg: VERConfig) -> _KeyMap:
+    """The port's state_dict key -> (the JAX leaf paths it is made of,
+    numpy transform of those leaves), for every parameter of the model
+    ``cfg`` builds."""
     h, t = "pts_bbox_head", "pts_bbox_head.transformer"
-    m: Dict[str, Tuple[str, Callable]] = {
-        f"{h}/voxel_embedding": (f"{h}.voxel_embedding.weight", same),
-        f"{h}/transformer/cams_embeds": (f"{t}.cams_embeds", same),
-        f"{h}/transformer/level_embeds": (f"{t}.level_embeds", same),
-    }
+    m: _KeyMap = {}
+
+    def leaf(jax_path: str, key: str, fn: Callable = _same):
+        m[key] = ((jax_path,), fn)
 
     def lin(jax_path: str, key: str):
-        m[f"{jax_path}/kernel"] = (f"{key}.weight", transpose)
-        m[f"{jax_path}/bias"] = (f"{key}.bias", same)
+        leaf(f"{jax_path}/kernel", f"{key}.weight", _transpose)
+        leaf(f"{jax_path}/bias", f"{key}.bias")
 
     def ln(jax_path: str, key: str):
-        m[f"{jax_path}/scale"] = (f"{key}.weight", same)
-        m[f"{jax_path}/bias"] = (f"{key}.bias", same)
+        leaf(f"{jax_path}/scale", f"{key}.weight")
+        leaf(f"{jax_path}/bias", f"{key}.bias")
 
+    def seq(jax_path: str, key: str, num_fcs: int, with_ln: bool):
+        step = 3 if with_ln else 2
+        for i in range(num_fcs):
+            lin(f"{jax_path}/fc{i}", f"{key}.{step * i}")
+            if with_ln:
+                ln(f"{jax_path}/ln{i}", f"{key}.{step * i + 1}")
+        lin(f"{jax_path}/out", f"{key}.{step * num_fcs}")
+
+    def mha(jax_path: str, key: str):
+        qkv = tuple(f"{jax_path}/attn/{n}" for n in ("query", "key", "value"))
+        m[f"{key}.attn.in_proj_weight"] = (
+            tuple(f"{p}/kernel" for p in qkv), _pack_qkv_kernels)
+        m[f"{key}.attn.in_proj_bias"] = (
+            tuple(f"{p}/bias" for p in qkv), _pack_qkv_biases)
+        leaf(f"{jax_path}/attn/out/kernel", f"{key}.attn.out_proj.weight",
+             _mha_out_kernel)
+        leaf(f"{jax_path}/attn/out/bias", f"{key}.attn.out_proj.bias")
+
+    leaf(f"{h}/voxel_embedding", f"{h}.voxel_embedding.weight")
+    for name in ("row_embed", "col_embed", "z_embed"):
+        leaf(f"{h}/positional_encoding/{name}",
+             f"{h}.positional_encoding.{name}.weight")
+    leaf(f"{h}/transformer/cams_embeds", f"{t}.cams_embeds")
+    leaf(f"{h}/transformer/level_embeds", f"{t}.level_embeds")
     for i in range(cfg.encoder_layers):
         jl = f"{h}/transformer/encoder/layer_{i}"
         el = f"{t}.encoder.layers.{i}"
@@ -64,6 +129,42 @@ def _encoder_mapping(cfg: VERConfig
         lin(f"{jl}/ffn/fc1", f"{el}.ffns.0.layers.0.0")
         lin(f"{jl}/ffn/fc2", f"{el}.ffns.0.layers.1")
         ln(f"{jl}/norm2", f"{el}.norms.1")
+
+    if not cfg.only_occ:
+        leaf(f"{h}/query_embedding", f"{h}.query_embedding.weight")
+        leaf(f"{h}/query_layout_embedding",
+             f"{h}.query_layout_embedding.weight")
+        lin(f"{h}/transformer/reference_points", f"{t}.reference_points")
+        for i in range(cfg.decoder_layers):
+            jl = f"{h}/transformer/decoder/layer_{i}"
+            dl = f"{t}.decoder.layers.{i}"
+            mha(f"{jl}/self_attn", f"{dl}.attentions.0")
+            ln(f"{jl}/norm1", f"{dl}.norms.0")
+            for name in ("value_proj", "sampling_offsets",
+                         "attention_weights", "output_proj"):
+                lin(f"{jl}/cross_attn/{name}", f"{dl}.attentions.1.{name}")
+            ln(f"{jl}/norm2", f"{dl}.norms.1")
+            lin(f"{jl}/ffn/fc1", f"{dl}.ffns.0.layers.0.0")
+            lin(f"{jl}/ffn/fc2", f"{dl}.ffns.0.layers.1")
+            ln(f"{jl}/norm3", f"{dl}.norms.2")
+            # the reference keeps the regression branches on the head
+            seq(f"{h}/transformer/reg_branch_{i}", f"{h}.reg_branches.{i}",
+                cfg.num_reg_fcs, with_ln=False)
+            seq(f"{h}/cls_branch_{i}", f"{h}.cls_branches.{i}",
+                cfg.num_reg_fcs, with_ln=True)
+            if cfg.predicts_layout:
+                seq(f"{h}/layout_branch_{i}", f"{h}.layout_branches.{i}",
+                    cfg.num_reg_fcs, with_ln=False)
+
+    if not cfg.only_det:
+        lin(f"{h}/occ_proj", f"{h}.occ_proj")
+        seq(f"{h}/occ_branches", f"{h}.occ_branches", cfg.num_occ_fcs,
+            with_ln=True)
+        if cfg.refine_occ:
+            for i in range(upsampler_stages(cfg)):
+                leaf(f"{h}/up_sample/up{i}/kernel",
+                     f"{h}.up_sample.{i}.weight", _conv_transpose_kernel)
+                leaf(f"{h}/up_sample/up{i}/bias", f"{h}.up_sample.{i}.bias")
     return m
 
 
@@ -71,31 +172,60 @@ def state_dict_from_jax(params: Mapping, cfg: VERConfig
                         ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
     """JAX ``VoxelFormer`` parameter tree (numpy leaves; an outer
     ``{"params": ...}`` is unwrapped) -> (the port's state_dict, the JAX
-    leaf paths it did not map).  The unmapped leaves are the parts later
-    slices port: decoder, branches, occupancy head, positional encoding.
-    Raises KeyError when an encoder-path leaf is missing."""
+    leaf paths it did not map, empty for a non-temporal model).
+
+    The positional encoding is inert on the active path, so flax never
+    creates it; where the tree lacks it, it gets zeros of the reference
+    shapes, as the JAX package's ``export_state_dict`` writes.  Raises
+    KeyError when any other parameter of the model is missing and
+    NotImplementedError on a temporal config."""
+    if cfg.use_temporal_self_attn:
+        raise NotImplementedError(
+            "temporal (TSA) configs are not ported yet (ROADMAP Queue 1, "
+            "slice 5)")
     if "params" in params and len(params) == 1:
         params = params["params"]
     leaves = _flatten(params)
-    mapping = _encoder_mapping(cfg)
-    missing = sorted(set(mapping) - set(leaves))
+    pos = "pts_bbox_head/positional_encoding/"
+    for name, rows in (("row_embed", cfg.bev_h), ("col_embed", cfg.bev_w),
+                       ("z_embed", cfg.bev_z)):
+        leaves.setdefault(pos + name, np.zeros((rows, cfg.embed_dims),
+                                               np.float32))
+    mapping = _mapping(cfg)
+    needed = {p for paths, _ in mapping.values() for p in paths}
+    missing = sorted(needed - set(leaves))
     if missing:
-        raise KeyError(f"JAX params lack encoder-path leaves: {missing[:10]}")
+        raise KeyError(f"JAX params lack leaves of the model: {missing[:10]}")
     sd = {key: torch.from_numpy(np.ascontiguousarray(
-              fn(leaves[path]), dtype=np.float32))
-          for path, (key, fn) in mapping.items()}
-    return sd, sorted(set(leaves) - set(mapping))
+              fn(*(leaves[p] for p in paths)), dtype=np.float32))
+          for key, (paths, fn) in mapping.items()}
+    return sd, sorted(set(leaves) - needed)
 
 
 def load_checkpoint(model: nn.Module, path: str) -> List[str]:
     """Load a reference-format ``.pth`` (a state_dict, or mmcv's
-    ``{"state_dict": ..., "meta": ...}``) into ``model`` by name.  Keys the
-    port has no module for yet (decoder, heads) are ignored and returned;
-    a parameter of the port missing from the file is an error."""
+    ``{"state_dict": ..., "meta": ...}``) into ``model`` by name,
+    strictly: a parameter of the model missing from the file, or a key of
+    the file the model has no parameter for, is an error.  The keys it
+    ignores, and returns, are the reference's dead image backbone and loss
+    buffer and, where the model has none (``add_layout`` off, or
+    ``only_det``), its always-built ``layout_branches``."""
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     sd = ckpt.get("state_dict", ckpt)
-    res = model.load_state_dict(sd, strict=False)
+    layout = "pts_bbox_head.layout_branches."
+
+    def ignored(k: str) -> bool:
+        return (k.startswith(_DEAD_PREFIXES) or k in _DEAD_KEYS
+                or "num_batches_tracked" in k
+                or (k.startswith(layout) and not model.cfg.predicts_layout))
+
+    skip = sorted(k for k in sd if ignored(k))
+    res = model.load_state_dict({k: v for k, v in sd.items()
+                                 if k not in skip}, strict=False)
     if res.missing_keys:
-        raise KeyError(f"{path} lacks parameters of the encoder path: "
+        raise KeyError(f"{path} lacks parameters of the model: "
                        f"{res.missing_keys[:10]}")
-    return list(res.unexpected_keys)
+    if res.unexpected_keys:
+        raise KeyError(f"{path} has keys the model has no parameter for: "
+                       f"{res.unexpected_keys[:10]}")
+    return skip

@@ -1,2 +1,3 @@
 from .mp3d import MP3DDataset, collate, iterate_batches  # noqa: F401
-from .synthetic import make_synthetic_dataset  # noqa: F401
+from .synthetic import (make_synthetic_dataset,  # noqa: F401
+                        synthetic_samples)

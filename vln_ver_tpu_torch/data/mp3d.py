@@ -1,12 +1,17 @@
-"""MP3D viewpoint reader for VER generation (PyTorch port of the test-mode
-part of ``vln_ver_tpu/data/mp3d.py``).
+"""MP3D viewpoint reader (PyTorch port of ``vln_ver_tpu/data/mp3d.py``,
+feature path).
 
 Reads, per viewpoint, the ViT features, the camera matrices, the origin
-shift and the token: everything the VER dump needs.  Occupancy and box
-ground truth are not read.
+shift and the token, and the ground truth where the annotation has it:
+gravity boxes with labels and validity, the room layout, and the dense
+occupancy labels with their visibility mask.
 
 Files under ``data_root`` (the reference's layout):
-  annotation pkl: one dict per viewpoint with ``token = '{scan}_{vp}'``;
+  annotation pkl: one dict per viewpoint with ``token = '{scan}_{vp}'``,
+    and optionally ``gt_boxes`` (N, 7) raw (cx, cy, z_bottom, w, l, h,
+    yaw), ``labels`` (N,), ``layout`` (7,), ``occ_gt_path`` (an (M, 2)
+    int npy of (flat_index, class)) and ``occ_invalid_path`` (flat
+    indices of unobserved voxels);
   new_vit_base_patch16_197_imagenet.hdf5: '{scan}_{vp}_i1_{deg}' ->
     (1, 197, 768), the CLS token is stripped (voxelformer.py:322-323);
   world2pixel/{scan}.json: '{vp}_i1_{deg}' -> 4x4 row-major list;
@@ -24,15 +29,69 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..boxes import gravity_boxes_from_raw
+from ..occupancy import dense_from_sparse_np
+
+
+# boxes per sample, padded (the JAX reader's default)
+MAX_GT = 32
+
+
+def ground_truth(info: Dict, test_mode: bool = False
+                 ) -> Dict[str, np.ndarray]:
+    """The box and layout ground truth of one annotation, at static shapes
+    (vln_ver_tpu/data/mp3d.py:181-204): ``MAX_GT`` gravity boxes with
+    labels and a validity mask, and one layout box with its flag.  Empty
+    in test mode when the annotation has no boxes."""
+    if test_mode and "gt_boxes" not in info:
+        return {}
+    raw = np.asarray(info.get("gt_boxes", np.zeros((0, 7))),
+                     np.float32).reshape(-1, 7)
+    n = min(len(raw), MAX_GT)
+    boxes = np.zeros((MAX_GT, 9), np.float32)
+    labels = np.zeros((MAX_GT,), np.int32)
+    valid = np.zeros((MAX_GT,), bool)
+    if n:
+        boxes[:n] = gravity_boxes_from_raw(raw[:n])
+        labels[:n] = np.asarray(info["labels"][:n], np.int32)
+        valid[:n] = True
+    out = dict(gt_boxes=boxes, gt_labels=labels, gt_valid=valid)
+    if info.get("layout") is not None:
+        out["gt_layout"] = gravity_boxes_from_raw(
+            np.asarray(info["layout"], np.float32).reshape(1, 7))
+        out["layout_valid"] = np.ones((1,), bool)
+    else:
+        out["gt_layout"] = np.zeros((1, 9), np.float32)
+        out["layout_valid"] = np.zeros((1,), bool)
+    return out
+
+
+def occupancy_ground_truth(sparse: np.ndarray, invalid: Optional[np.ndarray],
+                           voxel_num: int, occupancy_classes: int
+                           ) -> Dict[str, np.ndarray]:
+    """``occ_dense`` (voxel_num,) int32 labels, empty = ``occupancy_classes``,
+    and ``occ_visible`` (voxel_num,) uint8, 0 on the unobserved voxels
+    (reference mp3docc_dataset.py:505-517)."""
+    visible = np.ones(voxel_num, np.uint8)
+    if invalid is not None:
+        visible[invalid] = 0
+    return {"occ_dense": dense_from_sparse_np(sparse, voxel_num,
+                                              occupancy_classes),
+            "occ_visible": visible}
+
 
 class MP3DDataset:
     def __init__(self, ann_file: str, data_root: str, num_cams: int = 6,
-                 feat_hw: int = 14):
+                 feat_hw: int = 14, voxel_num: int = 35 * 120 * 120,
+                 occupancy_classes: int = 16, test_mode: bool = False):
         with open(ann_file, "rb") as f:
             self.data_infos: List[Dict] = pickle.load(f)
         self.data_root = data_root
         self.num_cams = num_cams
         self.feat_hw = feat_hw
+        self.voxel_num = voxel_num
+        self.occupancy_classes = occupancy_classes
+        self.test_mode = test_mode
         self._cam_cache: Dict[str, Dict] = {}
         self._cord_cache: Optional[Dict] = None
         self._h5 = None
@@ -72,15 +131,24 @@ class MP3DDataset:
                           dtype=np.float32)[:3]
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
-        token = self.data_infos[index]["token"]
+        info = self.data_infos[index]
+        token = info["token"]
         scan, vp = token.split("_")
         keys = [f"{scan}_{vp}_i1_{deg}" for deg in range(self.num_cams)]
-        return {
+        sample = {
             "features": np.stack([self._get_feature(k) for k in keys]),
             "world2pixel": self._get_world2pixel(scan, vp),
             "origin_shift": self._get_origin_shift(scan, vp),
             "token": token,
         }
+        sample.update(ground_truth(info, self.test_mode))
+        if "occ_gt_path" in info:
+            invalid = (np.load(info["occ_invalid_path"])
+                       if "occ_invalid_path" in info else None)
+            sample.update(occupancy_ground_truth(
+                np.load(info["occ_gt_path"]), invalid, self.voxel_num,
+                self.occupancy_classes))
+        return sample
 
     def close(self) -> None:
         if self._h5 is not None:

@@ -77,9 +77,14 @@ def main(argv=None) -> dict:
         ann = make_synthetic_dataset(root or "data/mp3d", split="forall",
                                      num_cams=ver.num_cams,
                                      feat_hw=ver.feat_h,
-                                     feat_dim=ver.in_channels)
+                                     feat_dim=ver.in_channels,
+                                     occ_dims=(ver.occ_zdim, ver.occ_ydim,
+                                               ver.occ_xdim),
+                                     pc_range=ver.pc_range)
     dataset = MP3DDataset(ann, root, num_cams=ver.num_cams,
-                          feat_hw=ver.feat_h)
+                          feat_hw=ver.feat_h, voxel_num=ver.voxel_num,
+                          occupancy_classes=ver.occupancy_classes,
+                          test_mode=True)
 
     model = build_model(ver, device, seed=0)
     if args.checkpoint:

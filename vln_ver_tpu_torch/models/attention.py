@@ -1,5 +1,4 @@
-"""Per-camera 2D deformable attention and masked-dense spatial
-cross-attention (PyTorch port of ``vln_ver_tpu/models/attention.py``).
+"""Attention modules (PyTorch port of ``vln_ver_tpu/models/attention.py``).
 
 * :class:`CamDeformableAttention` is the reference MSDeformableAttention3D
   (spatial_cross_attention.py:179-402): per-camera 2D deformable
@@ -8,6 +7,12 @@ cross-attention (PyTorch port of ``vln_ver_tpu/models/attention.py``).
   for every camera and masks invisible contributions before the sum: the
   same result as the reference's per-camera rebatch and scatter-add, with
   static shapes.
+* :class:`VoxelDeformableAttention3D` is the decoder's cross-attention,
+  the reference VoxelCustomMSDeformableAttention (voxel_decoder.py:
+  135-358): 3D offsets, trilinear sampling over the (z, h, w) voxel grid,
+  output projection and residual.
+* :class:`MultiheadAttention` is mmcv's wrapper around
+  ``nn.MultiheadAttention`` (the decoder's self-attention).
 
 Module and parameter names follow the reference ``state_dict``.
 """
@@ -18,8 +23,10 @@ import math
 from typing import Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from ..ops.deform_attn import voxel_deform_attn_3d
 from ..ops.deform_cuda import ms_deform_attn_2d_fused
 from .layers import Dense
 
@@ -31,6 +38,21 @@ def _offset_grid_init_2d(num_heads: int, num_levels: int,
     thetas = torch.arange(num_heads, dtype=torch.float32) * (
         2.0 * math.pi / num_heads)
     grid = torch.stack([thetas.cos(), thetas.sin()], dim=-1)
+    grid = grid / grid.abs().max(dim=-1, keepdim=True).values
+    grid = grid[:, None, None, :].repeat(1, num_levels, num_points, 1)
+    scale = torch.arange(1, num_points + 1,
+                         dtype=torch.float32)[None, None, :, None]
+    return (grid * scale).reshape(-1)
+
+
+def _offset_grid_init_3d(num_heads: int, num_levels: int,
+                         num_points: int) -> torch.Tensor:
+    """3D variant: offsets seeded with (cos, sin, cos + sin)
+    (voxel_decoder.py:212-226)."""
+    thetas = torch.arange(num_heads, dtype=torch.float32) * (
+        2.0 * math.pi / num_heads)
+    grid = torch.stack([thetas.cos(), thetas.sin(),
+                        thetas.cos() + thetas.sin()], dim=-1)
     grid = grid / grid.abs().max(dim=-1, keepdim=True).values
     grid = grid[:, None, None, :].repeat(1, num_levels, num_points, 1)
     scale = torch.arange(1, num_points + 1,
@@ -157,3 +179,149 @@ class SpatialCrossAttention(nn.Module):
         count = qmask.float().sum(dim=1).clamp_min(1.0)
         slots = (slots / count[..., None]).to(self.dtype)
         return self.output_proj(slots) + residual
+
+
+class VoxelDeformableAttention3D(nn.Module):
+    """3D deformable cross-attention of object queries over the voxel grid
+    (reference VoxelCustomMSDeformableAttention).  The sampling is the
+    plain gather form on every device; a depth-1 grid samples bilinearly
+    (``voxel_deform_attn_3d``'s 2D route, the reference's for
+    ``decoder_on_bev``).  Dropout is inert in inference and left out."""
+
+    def __init__(self, embed_dims: int = 768, num_heads: int = 8,
+                 num_levels: int = 1, num_points: int = 4,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.embed_dims = embed_dims
+        self.num_heads = num_heads
+        self.num_levels = num_levels
+        self.num_points = num_points
+        self.dtype = dtype
+        self.value_proj = Dense(embed_dims, embed_dims, dtype)
+        self.sampling_offsets = Dense(
+            embed_dims, num_heads * num_levels * num_points * 3)
+        self.attention_weights = Dense(
+            embed_dims, num_heads * num_levels * num_points)
+        self.output_proj = Dense(embed_dims, embed_dims, dtype)
+
+    @torch.no_grad()
+    def init_sampling(self) -> None:
+        """flax init of the offsets (zero kernel, directional 3D grid
+        bias) and attention weights (zeros)."""
+        self.sampling_offsets.weight.zero_()
+        self.sampling_offsets.bias.copy_(_offset_grid_init_3d(
+            self.num_heads, self.num_levels, self.num_points))
+        self.attention_weights.weight.zero_()
+        self.attention_weights.bias.zero_()
+
+    def forward(self, query: torch.Tensor, value: torch.Tensor,
+                reference_points: torch.Tensor,
+                spatial_shapes: Sequence[Tuple[int, int, int]],
+                query_pos: torch.Tensor = None) -> torch.Tensor:
+        """query (B, nq, C); value (B, nv, C); reference_points
+        (B, nq, num_levels, 3), normalised (x, y, z)."""
+        bsz, nq, _ = query.shape
+        nv = value.shape[1]
+        heads, levels, points = (self.num_heads, self.num_levels,
+                                 self.num_points)
+        identity = query
+        if query_pos is not None:
+            query = query + query_pos
+
+        value = self.value_proj(value).reshape(
+            bsz, nv, heads, self.embed_dims // heads)
+        offsets = self.sampling_offsets(query).reshape(
+            bsz, nq, heads, levels, points, 3)
+        attn = self.attention_weights(query).reshape(
+            bsz, nq, heads, levels * points).softmax(dim=-1)
+        attn = attn.reshape(bsz, nq, heads, levels, points)
+
+        # the offset normaliser is (w, h, d) (voxel_decoder.py:313-318)
+        normalizer = torch.tensor([[w, h, d] for (d, h, w) in spatial_shapes],
+                                  dtype=torch.float32, device=query.device)
+        locations = (reference_points[:, :, None, :, None, :].float()
+                     + offsets / normalizer[None, None, None, :, None, :])
+
+        out = voxel_deform_attn_3d(value.float(), spatial_shapes, locations,
+                                   attn)
+        return self.output_proj(out.to(self.dtype)) + identity
+
+
+class _PackedAttention(nn.Module):
+    """The parameters of ``nn.MultiheadAttention`` under its names
+    (``in_proj_weight`` (3E, E), ``in_proj_bias``, ``out_proj``), with a
+    plain matmul + softmax forward in fp32 for the scores."""
+
+    def __init__(self, embed_dims: int, num_heads: int, dropout: float,
+                 dtype: torch.dtype):
+        super().__init__()
+        self.num_heads = num_heads
+        self.dtype = dtype
+        self.in_proj_weight = nn.Parameter(
+            torch.empty(3 * embed_dims, embed_dims))
+        self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dims))
+        self.out_proj = Dense(embed_dims, embed_dims, dtype)
+        self.attn_drop = nn.Dropout(dropout)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # flax MultiHeadDotProductAttention: lecun-normal q/k/v kernels of
+        # fan-in E, zero biases; out_proj is a Dense and resets itself
+        std = math.sqrt(1.0 / self.in_proj_weight.shape[1]) \
+            / .87962566103423978
+        nn.init.trunc_normal_(self.in_proj_weight, std=std, a=-2 * std,
+                              b=2 * std, generator=generator)
+        self.in_proj_bias.zero_()
+
+    def forward(self, query, key, value):
+        """(B, nq, E), (B, nk, E), (B, nk, E) -> (B, nq, E)."""
+        dt = self.dtype
+        w, b = self.in_proj_weight.to(dt), self.in_proj_bias.to(dt)
+        wq, wk, wv = w.chunk(3)
+        bq, bk, bv = b.chunk(3)
+        bsz, nq, e = query.shape
+        hd = e // self.num_heads
+
+        def heads(x, wi, bi):
+            y = F.linear(x.to(dt), wi, bi)
+            return y.reshape(bsz, -1, self.num_heads, hd).transpose(1, 2)
+
+        q = heads(query, wq, bq)
+        k = heads(key, wk, bk)
+        v = heads(value, wv, bv)
+        scores = (q.float() / math.sqrt(hd)) @ k.float().transpose(-1, -2)
+        probs = self.attn_drop(scores.softmax(dim=-1))
+        out = (probs.to(dt) @ v).transpose(1, 2).reshape(bsz, nq, e)
+        return self.out_proj(out)
+
+
+class MultiheadAttention(nn.Module):
+    """mmcv's MultiheadAttention wrapper with residual: a pos-less key
+    against a pos'd query of the same shape takes the query's positions
+    (mmcv's self-attention defaulting), and the deprecated ``dropout``
+    sets both the attention-probability dropout and the output dropout
+    before the residual (vln_ver_tpu/models/attention.py:379-420); both
+    are inert in eval mode."""
+
+    def __init__(self, embed_dims: int = 768, num_heads: int = 8,
+                 dropout: float = 0.1, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.attn = _PackedAttention(embed_dims, num_heads, dropout, dtype)
+        self.dropout_layer = nn.Dropout(dropout)
+
+    def forward(self, query, key=None, value=None, query_pos=None,
+                key_pos=None):
+        identity = query
+        if key is None:
+            key = query
+        if value is None:
+            value = key
+        if key_pos is None and query_pos is not None \
+                and query_pos.shape == key.shape:
+            key_pos = query_pos
+        if query_pos is not None:
+            query = query + query_pos
+        if key_pos is not None:
+            key = key + key_pos
+        out = self.attn(query, key, value)
+        return self.dropout_layer(out) + identity

@@ -135,5 +135,11 @@ class VERConfig:
         return self.occ_zdim * self.occ_ydim * self.occ_xdim
 
     @property
+    def predicts_layout(self) -> bool:
+        """Whether the forward runs the layout branches: the reference's
+        ``only_det`` branch takes precedence over ``add_layout``."""
+        return self.add_layout and not self.only_det
+
+    @property
     def head_dim(self) -> int:
         return self.embed_dims // self.num_heads

@@ -12,10 +12,12 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .attention import CamDeformableAttention
+from ..runtime import fp32_precision
+from .attention import (CamDeformableAttention, VoxelDeformableAttention3D,
+                        _PackedAttention)
 from .config import VERConfig
-from .head import Embedding, VoxelFormerOccupancyHead
-from .layers import Dense
+from .head import ClsBranch, Embedding, VoxelFormerOccupancyHead
+from .layers import ConvTranspose3d, Dense
 from .transformer import VoxelTransformer
 
 
@@ -34,19 +36,30 @@ class VoxelFormer(nn.Module):
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> "VoxelFormer":
         """Fill every parameter from ``generator`` with the flax
-        initialisers' distributions; LayerNorms keep ones and zeros."""
+        initialisers' distributions: lecun-normal kernels (the upsampler's
+        of fan-in 75 * C) with zero biases, normal(1.0) tables, the zero
+        kernels and directional grid biases of the sampling offsets and
+        the focal-prior biases of the class and occupancy branches;
+        LayerNorms keep ones and zeros."""
         for m in self.modules():
-            if isinstance(m, (Dense, Embedding, VoxelTransformer)):
+            if isinstance(m, (Dense, Embedding, VoxelTransformer,
+                              ConvTranspose3d, _PackedAttention)):
                 m.reset_parameters(generator)
         for m in self.modules():
-            if isinstance(m, CamDeformableAttention):
+            if isinstance(m, (CamDeformableAttention,
+                              VoxelDeformableAttention3D)):
                 m.init_sampling()
+            elif isinstance(m, ClsBranch):
+                m.init_prior()
         return self
 
     def forward(self, features: torch.Tensor, world2pixel: torch.Tensor,
-                origin_shift: torch.Tensor, only_bev: bool = True) -> dict:
-        return self.pts_bbox_head(features, world2pixel, origin_shift,
-                                  only_bev=only_bev)
+                origin_shift: torch.Tensor, only_bev: bool = False) -> dict:
+        # an fp32 model is true fp32 for every caller, not only the CLIs
+        # that set the flags: the upsampler is a cuDNN convolution
+        with fp32_precision(self.cfg.dtype):
+            return self.pts_bbox_head(features, world2pixel, origin_shift,
+                                      only_bev=only_bev)
 
 
 def build_model(cfg: VERConfig, device, seed: int = 0) -> VoxelFormer:

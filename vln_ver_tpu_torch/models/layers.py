@@ -1,4 +1,5 @@
-"""Linear and LayerNorm with the JAX package's dtype semantics.
+"""Linear, LayerNorm and the upsampler's transposed convolution with the
+JAX package's dtype semantics.
 
 A flax ``nn.Dense(dtype=...)`` keeps fp32 parameters and computes in its
 ``dtype``; :class:`Dense` does the same, so one module tree serves fp32
@@ -50,3 +51,41 @@ class LayerNorm(nn.LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return super().forward(x.float()).to(self.dtype)
+
+
+class ConvTranspose3d(nn.Module):
+    """One reference upsampler stage, ``nn.ConvTranspose3d(C, C, (3, 5, 5),
+    stride (1, 2, 2), padding (2, 4, 4), dilation 2, output_padding
+    (0, 1, 1))`` (vln_ver_tpu/models/head.py:97-98), in ``dtype``, on
+    NCDHW tensors.  ``weight`` is torch's ``(in, out, kD, kH, kW)``.
+
+    With stride 2 and dilation 2 every kernel tap lands on an even output
+    (y, x): each odd row or column of the output is the bias alone."""
+
+    kernel = (3, 5, 5)
+    stride = (1, 2, 2)
+    padding = (2, 4, 4)
+    output_padding = (0, 1, 1)
+    dilation = (2, 2, 2)
+
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(channels, channels,
+                                               *self.kernel))
+        self.bias = nn.Parameter(torch.empty(channels))
+        self.dtype = dtype
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        # flax lecun_normal on the (3, 5, 5, C, C) kernel: fan-in 75 * C
+        fan_in = self.weight[:, 0].numel()
+        std = math.sqrt(1.0 / fan_in) / .87962566103423978
+        nn.init.trunc_normal_(self.weight, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+        self.bias.zero_()
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return F.conv_transpose3d(
+            x.to(dt), self.weight.to(dt), self.bias.to(dt), self.stride,
+            self.padding, self.output_padding, 1, self.dilation)

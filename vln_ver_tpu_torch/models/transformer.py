@@ -1,9 +1,11 @@
-"""VoxelPerceptionTransformer, encoder half (PyTorch port of
-``vln_ver_tpu/models/transformer.py``: ``get_voxel_features``).
+"""VoxelPerceptionTransformer: encoder and decoder (PyTorch port of
+``vln_ver_tpu/models/transformer.py``).
 
-Adds the learned camera and level embeddings to the flattened per-view
-features, projects the voxel queries into every camera and runs the
-voxel encoder.
+``get_voxel_features`` adds the learned camera and level embeddings to the
+flattened per-view features, projects the voxel queries into every camera
+and runs the voxel encoder; ``forward`` also runs the DETR decoder over the
+resulting voxel grid, refining its reference points with the head's
+regression branches (reference names: ``pts_bbox_head.reg_branches``).
 """
 
 from __future__ import annotations
@@ -13,7 +15,23 @@ from torch import nn
 
 from .. import geometry
 from .config import VERConfig
+from .decoder import VoxelDetectionDecoder
 from .encoder import VoxelEncoder
+from .layers import Dense
+
+
+class RegBranch(nn.Sequential):
+    """(Dense, ReLU) x num_fcs, then Dense(code_size) in fp32 (head
+    _init_layers :191-196); reference indices 0, 2, ..., 2 * num_fcs.  The
+    layout branches have the same structure."""
+
+    def __init__(self, embed_dims: int, code_size: int, num_fcs: int = 2,
+                 dtype: torch.dtype = torch.float32):
+        layers = []
+        for _ in range(num_fcs):
+            layers += [Dense(embed_dims, embed_dims, dtype), nn.ReLU()]
+        layers.append(Dense(embed_dims, code_size))
+        super().__init__(*layers)
 
 
 class VoxelTransformer(nn.Module):
@@ -26,6 +44,13 @@ class VoxelTransformer(nn.Module):
         self.level_embeds = nn.Parameter(
             torch.empty(cfg.num_levels, cfg.embed_dims))
         self.encoder = VoxelEncoder(cfg)
+        if not cfg.only_occ:
+            if cfg.decoder_on_bev:
+                raise NotImplementedError(
+                    "decoder_on_bev (voxel-to-BEV mlp/pool before the "
+                    "decoder) is not ported yet (ROADMAP Queue 1, slice 5)")
+            self.decoder = VoxelDetectionDecoder(cfg)
+            self.reference_points = Dense(cfg.embed_dims, 3)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -65,3 +90,24 @@ class VoxelTransformer(nn.Module):
 
         embed = self.encoder(bev_queries, value, cam_xy, mask, ((fh, fw),))
         return embed, 0
+
+    def forward(self, features: torch.Tensor, bev_queries: torch.Tensor,
+                object_query_embed: torch.Tensor, world2pixel: torch.Tensor,
+                origin_shift: torch.Tensor, reg_branches):
+        """Full encoder + decoder pass.
+
+        Returns (voxel_embed (B, bev_num, C), inter_states (L, B, nq, C),
+        raw_reg_preds (L, B, nq, code_size), refs_before (L, B, nq, 3),
+        sca_overflow)."""
+        cfg = self.cfg
+        voxel_embed, overflow = self.get_voxel_features(
+            features, bev_queries, world2pixel, origin_shift)
+        b = features.shape[0]
+        query_pos, query = object_query_embed.chunk(2, dim=-1)
+        query_pos = query_pos[None].expand(b, -1, -1).to(cfg.dtype)
+        query = query[None].expand(b, -1, -1).to(cfg.dtype)
+        init_ref = self.reference_points(query_pos.float()).sigmoid()
+        inter_states, refs_before, raw_preds = self.decoder(
+            query, voxel_embed, query_pos, init_ref, reg_branches,
+            ((cfg.bev_z, cfg.bev_h, cfg.bev_w),))
+        return voxel_embed, inter_states, raw_preds, refs_before, overflow

@@ -1,6 +1,8 @@
-"""Bilinear grid sampling with torch ``grid_sample`` semantics.
+"""Bilinear and trilinear grid sampling with torch ``grid_sample``
+semantics.
 
-The plain reference for the deformable-attention kernel: a normalised
+The plain reference for the deformable-attention kernel, and the 3D
+sampler of the decoder's cross-attention: a normalised
 location ``u`` in [0, 1] maps to the pixel coordinate ``u * size - 0.5``
 (``align_corners=False``) and every tap outside the map contributes zero,
 each tap checked on its own.
@@ -50,3 +52,28 @@ def bilinear_sample_2d(value: torch.Tensor, x: torch.Tensor,
             + gather(y0, x1) * tap_w(wy0, wx1, oky0 & okx1)
             + gather(y1, x0) * tap_w(wy1, wx0, oky1 & okx0)
             + gather(y1, x1) * tap_w(wy1, wx1, oky1 & okx1))
+
+
+def trilinear_sample_3d(value: torch.Tensor, x: torch.Tensor,
+                        y: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
+    """Sample ``value`` (..., D, H, W, C) at pixel coords ``x``/``y``/``z``
+    (..., S): ``x`` indexes W, ``y`` H and ``z`` D (the 5-D grid_sample
+    convention, grid (x, y, z)).  Returns (..., S, C) with zero padding
+    outside the grid, each of the 8 taps checked on its own in float."""
+    d, h, w, c = value.shape[-4:]
+    vflat = value.reshape(value.shape[:-4] + (d * h * w, c))
+
+    def axis(coord, size):
+        i0, i1, w0, w1, ok0, ok1 = _taps_1d(coord, size)
+        return (i0, w0, ok0), (i1, w1, ok1)
+
+    out = 0.0
+    for zi, wz, okz in axis(z, d):
+        for yi, wy, oky in axis(y, h):
+            for xi, wx, okx in axis(x, w):
+                idx = ((zi * h + yi) * w + xi)[..., None].expand(
+                    xi.shape + (c,))
+                wgt = wz * wy * wx * (okz & oky & okx).to(wz.dtype)
+                out = out + torch.gather(vflat, -2, idx) * wgt[
+                    ..., None].to(value.dtype)
+    return out

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -27,3 +29,21 @@ def set_fp32_precision(dtype: torch.dtype) -> None:
     if dtype == torch.float32:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def fp32_precision(dtype: torch.dtype):
+    """Run the block in true fp32 when ``dtype`` is fp32, whatever the
+    caller left in the process-wide TF32 flags (cuDNN's defaults to True),
+    and put the flags back after it."""
+    if dtype != torch.float32:
+        yield
+        return
+    saved = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    set_fp32_precision(dtype)
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = saved
