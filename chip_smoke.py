@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's VER volume path and its full forward and eval
-path once on one NVIDIA GPU.
+"""Drive the PyTorch port's VER volume path, its full forward and eval path
+and its training path once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,10 +8,12 @@ Phases (any failure exits nonzero, nothing is caught):
   1. require CUDA; print the card's name and power limit;
   2. build the CUDA kernels from vln_ver_tpu_torch/csrc, time the build and
      print ptxas's registers and spills for every instantiation;
-  3. hold the deformable-attention kernel against its plain PyTorch version
-     at the full main-path shape (fp32 and bf16), at the eval path's
-     (batch 2, phase 6) and at the edges of its launch plan: a 10x20 map, bs=1, nq=57 and 901, B=8, one V stage
-     (d=256), rows the TMA unit cannot take (d=3), far-out locations;
+  3. hold the deformable-attention kernel, and its backward kernel
+     (dvalue, dlocations, dweights), against the plain PyTorch version and
+     its autograd at the full main-path shape (fp32 and bf16), at the eval
+     path's (batch 2, phase 6) and at the edges of the launch plans: a
+     10x20 map, bs=1, nq=57 and 901, B=8, one V stage (d=256), rows the
+     TMA unit cannot take (d=3), far-out locations;
   4. run the main path as get_occ does (configs/verformer/get_occ.py, random
      weights from seed 0, 16 synthetic viewpoints, batch 4): the lift, the
      host copy and the dump layout (the HDF5 write needs h5py, which a
@@ -23,7 +25,8 @@ Phases (any failure exits nonzero, nothing is caught):
      wrapper's host time is left out; and over eager launches, as a caller
      sees it) and its plain version at batch 1 and batch 4 of the main
      path's shapes, print each timed launch's plan, the bytes bound and the
-     shared-memory floor;
+     shared-memory floor; then the same for the backward kernel against the
+     plain version's autograd backward;
   6. run the full forward and the eval path as ``python -m
      vln_ver_tpu_torch.test`` does (configs/verformer/vocc.py at full
      width, the same random weights from seed 0, 8 synthetic viewpoints
@@ -34,8 +37,21 @@ Phases (any failure exits nonzero, nothing is caught):
      weights (vocc.py widths on the 0.2 m occupancy grid: the CPU takes
      minutes for the full grid).  Print viewpoints/s, peak device memory, the
      device time of each stage (CUDA events around the stage's modules),
-     the device's busy share and its largest kernels, then the
-     ``kernels`` line.
+     the device's busy share and its largest kernels;
+  7. train as ``python -m vln_ver_tpu_torch.train`` does
+     (configs/verformer/vocc.py at full width, the same random weights
+     from seed 0, phase 6's viewpoints with ground truth, batch
+     samples_per_gpu = 1, the auction matcher): 2 warm-up steps, then 6
+     timed steps through ``make_train_step``.  Each step must launch the
+     forward and the backward kernel 3 times each, give every loss finite
+     with the full key set and a finite gradient norm, and move the
+     parameters; one step on the card must match a CPU step of the same
+     weights and batch (0.2 m grid, dropout off, host matcher): the same
+     matched queries, the losses and every parameter's gradient.  Print
+     train steps/s, peak device memory, the device time of the forward,
+     losses and matching, backward and optimizer (CUDA events), the busy
+     share and largest kernels of one profiled step, then the ``kernels``
+     line.
 The last line is the ``{"ok": true, "device": ...}`` JSON object.
 """
 
@@ -63,6 +79,8 @@ N_VIEWPOINTS = 16
 BATCH = 4
 # phase 6: synthetic viewpoints with ground truth, eval batch
 EVAL_SCANS, EVAL_VPS_PER_SCAN, EVAL_BATCH = 2, 4, 2
+# phase 7: train steps at batch samples_per_gpu over phase 6's viewpoints
+TRAIN_WARMUP, TRAIN_STEPS = 2, 6
 
 
 def fail(msg: str) -> None:
@@ -127,6 +145,42 @@ def deform_bound(value, loc, weights, spatial_hw):
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+def deform_bwd_bound(value, loc, weights, spatial_hw):
+    """The same for the backward: value, locations, weights and the output
+    gradient read once, dvalue, dlocations and dweights written once, vs
+    two fp32 multiply-adds per channel for each tap inside the map (one
+    into dvalue, one for the tap's dot product with the output gradient,
+    from which dweights and dlocations follow)."""
+    bs, hw, heads, d = value.shape
+    nq = loc.shape[1]
+    elt = value.element_size()
+    nbytes = (2 * value.numel() * elt + 2 * loc.numel() * 4
+              + 2 * weights.numel() * 4 + bs * nq * heads * d * elt)
+    flops = valid_taps(loc, spatial_hw) * d * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def plain_grads(value, loc, weights, grad_out, spatial_hw):
+    """(dvalue, dlocations, dweights) of the plain version by autograd, in
+    fp32."""
+    import torch
+
+    from vln_ver_tpu_torch.ops.deform_attn import ms_deform_attn_2d
+    ins = [t.detach().float().requires_grad_()
+           for t in (value, loc, weights)]
+    out = ms_deform_attn_2d(ins[0], (spatial_hw,), ins[1], ins[2])
+    return torch.autograd.grad(out, ins, grad_out.float())
+
+
+def grad_out_like(bs, nq, heads, d, dtype, seed, device):
+    import torch
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.standard_normal(
+        (bs, nq, heads * d)).astype(np.float32)).to(device, dtype)
 
 
 def smem_floor_ms(value, loc, spatial_hw):
@@ -266,8 +320,9 @@ def stage_times(stages, run):
             for name, evs in spans.items()}
 
 
-def full_forward_and_eval(model, ver, card) -> int:
-    """Phase 6; returns the kernel's launches over the eval run."""
+def full_forward_and_eval(model, ver, card):
+    """Phase 6; returns the kernel's launches over the eval run and the
+    synthetic viewpoints."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -278,7 +333,7 @@ def full_forward_and_eval(model, ver, card) -> int:
                                                      occupancy_hists)
     from vln_ver_tpu_torch.models import build_model
     from vln_ver_tpu_torch.occupancy import decode_occupancy
-    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
 
     dev = torch.device("cuda")
     cfg = load_config(os.path.join(REPO, "configs/verformer/vocc.py"))
@@ -306,17 +361,20 @@ def full_forward_and_eval(model, ver, card) -> int:
     run_eval(samples[:EVAL_BATCH])    # warm-up: allocator, cuBLAS, cuDNN
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    KERNEL.launches = 0
+    KERNEL.launches = KERNEL_BWD.launches = 0
     t0 = time.perf_counter()
     metrics = run_eval(samples)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches, bwd_launches = KERNEL.launches, KERNEL_BWD.launches
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = -(-n // EVAL_BATCH)
     if launches != ver.encoder_layers * n_batches:
         fail(f"deform_attn_2d launched {launches} times in the eval run, "
              f"expected {ver.encoder_layers} x {n_batches} batches")
+    if bwd_launches:
+        fail(f"the eval run launched deform_attn_2d's backward "
+             f"{bwd_launches} times, expected none")
     for k, v in metrics.items():
         if not np.isfinite(v):
             fail(f"eval metric {k} = {v}")
@@ -439,14 +497,229 @@ def full_forward_and_eval(model, ver, card) -> int:
     if not dev_us:
         print("eval device busy share: not measured (the profiler recorded "
               "no device time)")
-        return launches
+        return launches, bwd_launches, samples
     print(f"device busy share of the eval path: "
           f"{100 * dev_us / 1e6 / wall:.1f}% of {1e3 * wall:.3f} ms wall "
           f"({2 * EVAL_BATCH} viewpoints, profiled run) [{card}]")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<4d} {e.key[:90]}")
-    return launches
+    return launches, bwd_launches, samples
+
+
+def training(ver, samples, card):
+    """Phase 7; returns the forward and backward kernel launches over the
+    timed train steps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vln_ver_tpu_torch.config import build_train_config, load_config
+    from vln_ver_tpu_torch.data import synthetic_samples
+    from vln_ver_tpu_torch.data.mp3d import collate
+    from vln_ver_tpu_torch.models import build_model
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    from vln_ver_tpu_torch.runtime import fp32_precision
+    from vln_ver_tpu_torch.train import (create_train_state, make_train_step,
+                                         staged_batches, to_device)
+    from vln_ver_tpu_torch.train.objective import detection_matches
+    from vln_ver_tpu_torch.utils.params import grads_by_name, relu_masks
+
+    dev = torch.device("cuda")
+    cfg = load_config(os.path.join(REPO, "configs/verformer/vocc.py"))
+    batch = int(cfg["data"]["samples_per_gpu"])
+    tc = build_train_config(cfg, len(samples) // batch)
+    model = build_model(ver, dev, seed=0)
+    state = create_train_state(model, tc)
+    step_fn = make_train_step(ver, tc)
+    batches = [collate(samples[i:i + batch])
+               for i in range(0, len(samples) - batch + 1, batch)]
+    need = TRAIN_WARMUP + TRAIN_STEPS
+    batches = (batches * -(-need // len(batches)))[:need]
+
+    def run(host_batches):
+        return [step_fn(state, b, seed=1) for b in staged_batches(
+            host_batches, lambda b: to_device(b, dev))]
+
+    run(batches[:TRAIN_WARMUP])   # warm-up: allocator, cuBLAS, cuDNN
+    torch.cuda.synchronize()
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.launches = KERNEL_BWD.launches = 0
+    t0 = time.perf_counter()
+    metrics = run(batches[TRAIN_WARMUP:])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    fwd, bwd = KERNEL.launches, KERNEL_BWD.launches
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    want = ver.encoder_layers * TRAIN_STEPS
+    if fwd != want or bwd != want:
+        fail(f"the train steps launched deform_attn_2d {fwd} and its "
+             f"backward {bwd} times, expected {ver.encoder_layers} each "
+             f"x {TRAIN_STEPS} steps")
+    keys = {"loss_cls", "loss_bbox", "loss_occupancy", "loss_flow", "loss",
+            "grad_norm", "sca_overflow"}
+    keys |= {f"d{i}.loss_{k}" for i in range(ver.decoder_layers - 1)
+             for k in ("cls", "bbox")}
+    if ver.predicts_layout:
+        keys.add("loss_layout")
+    host = [{k: float(v) for k, v in m.items()} for m in metrics]
+    for m in host:
+        if set(m) != keys:
+            fail(f"train metrics {sorted(m)}, want {sorted(keys)}")
+        bad = [k for k, v in m.items() if not np.isfinite(v)]
+        if bad or m["sca_overflow"] != 0:
+            fail(f"train step metrics not finite: {bad} (or overflow)")
+    after = dict(model.named_parameters())
+    stuck = [n for n, p in after.items() if torch.equal(before[n], p)
+             and p.grad is not None and bool(p.grad.any())]
+    moved = sum(not torch.equal(before[n], p) for n, p in after.items())
+    if stuck or moved < 0.95 * len(after):
+        fail(f"parameters did not move: {moved} of {len(after)} moved; "
+             f"with a gradient but unmoved: {stuck[:5]}")
+    print("train losses by step: " + json.dumps(
+        [{k: m[k] for k in ("loss", "loss_cls", "loss_bbox",
+                            "loss_occupancy", "grad_norm")} for m in host]))
+    print(f"train: {TRAIN_STEPS} steps in {train_s:.4f}s = "
+          f"{TRAIN_STEPS / train_s:.3f} steps/s, "
+          f"{TRAIN_STEPS * batch / train_s:.3f} viewpoints/s at batch "
+          f"{batch} ({tc.matcher} matcher), peak device memory "
+          f"{peak_mib:.1f} MiB, {moved} of {len(after)} parameters moved, "
+          f"deform launches {fwd} forward + {bwd} backward [{card}]")
+
+    # the real step's stages, timed with CUDA events recorded by hooks on
+    # the calls step_fn makes: the model's forward, the optimizer's
+    # zero_grad (just before the backward) and apply_gradients
+    ev = {}
+
+    def mark(name):
+        ev[name] = torch.cuda.Event(enable_timing=True)
+        ev[name].record()
+
+    def wrap(obj, attr, before, after=None):
+        inner = getattr(obj, attr)
+
+        def call(*a, **k):
+            mark(before)
+            out = inner(*a, **k)
+            if after:
+                mark(after)
+            return out
+        setattr(obj, attr, call)
+
+    hooks = [model.register_forward_pre_hook(lambda *_: mark("start")),
+             model.register_forward_hook(lambda *_: mark("forward"))]
+    wrap(state.optimizer, "zero_grad", "losses")
+    wrap(state, "apply_gradients", "backward", "update")
+
+    def stage_step(b):
+        step_fn(state, b, seed=1)
+        torch.cuda.synchronize()
+        names = ("start", "forward", "losses", "backward", "update")
+        return [ev[names[i]].elapsed_time(ev[names[i + 1]])
+                for i in range(4)]
+
+    b = to_device(batches[0], dev)
+    stage_step(b)
+    spans = stage_step(b)
+    for h in hooks:
+        h.remove()
+    del state.optimizer.zero_grad, state.apply_gradients
+    print(f"train step device time at batch {batch} (elapsed between CUDA "
+          f"events in step_fn): forward {spans[0]:.3f} ms, losses and "
+          f"matching {spans[1]:.3f} ms, backward {spans[2]:.3f} ms, clip and "
+          f"AdamW {spans[3]:.3f} ms, total {sum(spans):.3f} ms [{card}]")
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(state, b, seed=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.key_averages()
+              if getattr(e, "device_type", None) is not None
+              and str(e.device_type).endswith("CUDA")]
+    dev_us = sum(e.self_device_time_total for e in events)
+    if dev_us:
+        print(f"device busy share of a train step: "
+              f"{100 * dev_us / 1e6 / wall:.1f}% of {1e3 * wall:.3f} ms wall "
+              f"(profiled run) [{card}]")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            print(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
+                  f"x{e.count:<4d} {e.key[:90]}")
+    else:
+        print("train device busy share: not measured (the profiler "
+              "recorded no device time)")
+
+    # one step on the card against one on the CPU: the same weights and
+    # batch, dropout off, the exact host matcher, on the 0.2 m grid (the
+    # CPU's full-grid upsampler takes minutes)
+    check = dataclasses.replace(ver, occupancy_size=(0.2, 0.2, 0.2),
+                                dropout_rate=0.0)
+    grid = (check.occ_zdim, check.occ_ydim, check.occ_xdim)
+    one = collate(synthetic_samples(
+        1, 1, num_cams=check.num_cams, feat_hw=check.feat_h,
+        feat_dim=check.in_channels, occ_dims=grid, pc_range=check.pc_range,
+        seed=7, split="train"))
+    tc_host = dataclasses.replace(tc, matcher="host")
+    # the card's ReLUs take the CPU step's masks (utils.params.relu_masks):
+    # at a kink the gradient is not set by the forward values, and one
+    # pre-activation within rounding of 0 in a class branch moved that
+    # branch's weight gradient by 3.6 % between card and CPU
+    masks, res = [], {}
+    for device in (torch.device("cpu"), dev):
+        t0 = time.perf_counter()
+        m = build_model(check, device, seed=0)
+        bb = to_device(one, device)
+        with torch.no_grad(), fp32_precision(check.dtype):
+            outs = m.train()(bb["features"], bb["world2pixel"],
+                             bb["origin_shift"])
+            matched = detection_matches(outs["all_cls_scores"],
+                                        outs["all_bbox_preds"], bb, "host")
+        st = create_train_state(m, tc_host)
+        cpu = device.type == "cpu"
+        with relu_masks(m, record=masks if cpu else None,
+                        pin=None if cpu else masks) as flips:
+            mets = make_train_step(check, tc_host)(st, bb, seed=1)
+        res[device.type] = (matched.cpu(),
+                            {k: float(v) for k, v in mets.items()},
+                            {n: g.cpu() for n, g in grads_by_name(m).items()},
+                            time.perf_counter() - t0, flips[0])
+    (mc, lc, gc, _, flips), (mh, lh, gh, cpu_s, _) = res["cuda"], res["cpu"]
+    print(f"train step card vs CPU: ReLU masks of the CPU step pinned on the "
+          f"card, {flips} of {sum(int(x.numel()) for x in masks)} elements "
+          f"where the card's own mask differs")
+    if not torch.equal(mc, mh):
+        fail(f"matched queries differ between card and CPU in "
+             f"{int((mc != mh).sum())} of {mc.numel()} GT slots: a near-tie "
+             f"in the matching cost flipped (card {mc.tolist()}, CPU "
+             f"{mh.tolist()}); the tolerances below assume equal matches")
+    worst_loss = max(abs(lc[k] - lh[k]) / max(abs(lh[k]), 1e-12)
+                     for k in lh if k != "sca_overflow")
+    bad = [k for k in lh if abs(lc[k] - lh[k]) > 1e-4 * abs(lh[k]) + 1e-7]
+    print(f"train step card vs CPU (vocc.py widths, occupancy grid {grid}, "
+          f"host matcher): matched queries equal ({mc.numel()} GT slots), "
+          f"largest relative loss difference {worst_loss:.3e} (rtol 1e-4) "
+          f"{'ok' if not bad else 'FAIL ' + str(bad)}; grad_norm card "
+          f"{lc['grad_norm']:.6f}, CPU {lh['grad_norm']:.6f}")
+    if bad:
+        fail(f"card train losses disagree with the CPU step: {bad}")
+    worst, failed = (0.0, None), []
+    for n, g_cpu in gh.items():
+        diff = float(torch.linalg.vector_norm((gc[n] - g_cpu).double()))
+        ref = float(torch.linalg.vector_norm(g_cpu.double()))
+        rel = diff / max(ref, 1e-30)
+        if diff > 1e-3 * ref + 1e-5 * g_cpu.numel() ** 0.5:
+            failed.append(n)
+        if ref > 0 and rel > worst[0]:
+            worst = (rel, n)
+    print(f"train step gradients card vs CPU: {len(gh)} parameters, worst "
+          f"relative L2 difference {worst[0]:.3e} ({worst[1]}) (within "
+          f"1e-3 relative + 1e-5 x sqrt(n)) "
+          f"{'ok' if not failed else 'FAIL ' + str(failed[:5])}; the CPU "
+          f"step took {cpu_s:.2f}s")
+    if failed:
+        fail(f"card gradients disagree with the CPU step: {failed[:5]}")
+    return fwd, bwd
 
 
 def main() -> None:
@@ -463,7 +736,7 @@ def main() -> None:
     from vln_ver_tpu_torch.models import build_model
     from vln_ver_tpu_torch.ops import build
     from vln_ver_tpu_torch.ops.deform_attn import ms_deform_attn_2d
-    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
     from vln_ver_tpu_torch.runtime import set_fp32_precision
     from vln_ver_tpu_torch.ver_writer import volumes_from_bev
 
@@ -541,6 +814,39 @@ def main() -> None:
             if main_err is None:
                 main_err = err
 
+    bwd_tolerance = {
+        f32: {"dvalue": (1e-4, 1e-5), "dlocations": (1e-3, 1e-4),
+              "dweights": (1e-4, 1e-5)},
+        bf16: dict.fromkeys(("dvalue", "dlocations", "dweights"),
+                            (1e-2, 1e-2))}
+    bwd_main_errs = None
+    for i, (name, bs, H, W, dd, nq, dt, rng_) in enumerate(checks):
+        v, loc, w = deform_inputs(bs, H * W, heads, dd, nq, P, dt, i, dev,
+                                  *rng_)
+        g = grad_out_like(bs, nq, heads, dd, dt, 100 + i, dev)
+        got = KERNEL_BWD(v, ((H, W),), loc, w, g)
+        torch.cuda.synchronize()
+        ref = plain_grads(v, loc, w, g, (H, W))
+        torch.cuda.synchronize()
+        errs, bad = {}, []
+        for key, a, r in zip(("dvalue", "dlocations", "dweights"), got, ref):
+            if a.dtype != (dt if key == "dvalue" else f32):
+                fail(f"backward {key} is {a.dtype} ({name})")
+            errs[key], ok = close(a.float(), r, *bwd_tolerance[dt][key])
+            if not ok:
+                bad.append(key)
+        plan = KERNEL_BWD.last_plan
+        print(f"backward kernel check {name}: " + ", ".join(
+            f"{k} max_abs_err={e:.3e} (rtol={bwd_tolerance[dt][k][0]}, "
+            f"atol={bwd_tolerance[dt][k][1]})" for k, e in errs.items())
+            + f" {'FAIL ' + str(bad) if bad else 'ok'} [ctas {plan.ctas}, "
+            f"chunk {plan.chunk}]")
+        if bad:
+            fail(f"deform_attn_2d_backward disagrees with the plain "
+                 f"version's autograd ({name}: {bad})")
+        if bwd_main_errs is None:
+            bwd_main_errs = errs
+
     # -- phase 4: the main path ------------------------------------------
     ver = build_ver_config(load_config(
         os.path.join(REPO, "configs/verformer/get_occ.py")))
@@ -580,17 +886,20 @@ def main() -> None:
     run_main_path()   # warm-up: allocator, cuBLAS handles
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    KERNEL.launches = 0
+    KERNEL.launches = KERNEL_BWD.launches = 0
     t0 = time.perf_counter()
     vols, bevs = run_main_path()
     torch.cuda.synchronize()
     main_s = time.perf_counter() - t0
-    launches = KERNEL.launches
+    launches, bwd_launches = KERNEL.launches, KERNEL_BWD.launches
     peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = -(-N_VIEWPOINTS // BATCH)
     if launches != ver.encoder_layers * n_batches:
         fail(f"deform_attn_2d launched {launches} times on the main path, "
              f"expected {ver.encoder_layers} x {n_batches} batches")
+    if bwd_launches:
+        fail(f"the main path launched deform_attn_2d's backward "
+             f"{bwd_launches} times, expected none")
     shape = (ver.embed_dims, ver.bev_z, ver.bev_h, ver.bev_w)
     for vol in vols:
         if vol.shape[1:] != shape or vol.dtype != np.float32:
@@ -649,20 +958,70 @@ def main() -> None:
                       f" [{card}]")
     print("deform_attn_2d timed plans: " + json.dumps(plans))
 
+    bwd_timing, bwd_plans = {}, {}
+    for dt in (f32, bf16):
+        for B in (1, 4):
+            bs = B * ver.num_cams
+            v, loc, w = deform_inputs(bs, H * W, heads, d, nq, P, dt,
+                                      10 + B, dev)
+            g = grad_out_like(bs, nq, heads, d, dt, 20 + B, dev)
+            ms = time_graph_ms(lambda: KERNEL_BWD(v, ((H, W),), loc, w, g))
+            eager_ms = time_ms(lambda: KERNEL_BWD(v, ((H, W),), loc, w, g))
+            name = f"B={B} {str(dt).split('.')[-1]}"
+            bwd_plans[name] = KERNEL_BWD.last_plan._asdict()
+            bound_ms, bound_by = deform_bwd_bound(v, loc, w, (H, W))
+            plain_ms = None
+            if dt is f32:
+                # the plain version's autograd backward alone: one forward
+                # graph kept, its backward replayed
+                ins = [t.detach().requires_grad_() for t in (v, loc, w)]
+                out = ms_deform_attn_2d(ins[0], ((H, W),), ins[1], ins[2])
+                plain_ms = time_ms(lambda: torch.autograd.grad(
+                    out, ins, g, retain_graph=True), iters=20, warmup=3)
+                del out, ins
+            bwd_timing[name] = (ms, eager_ms, plain_ms, bound_ms, bound_by)
+            plain = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
+            print(f"deform_attn_2d_backward {name} (bs={bs}): kernel "
+                  f"{ms:.4f} ms (graph; eager {eager_ms:.4f} ms){plain}, "
+                  f"bound {bound_ms:.4f} ms ({bound_by}), "
+                  f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
+            if name == "B=1 float32":
+                # its two halves: the dvalue scatter alone, the dlocations
+                # and dweights sums alone
+                dv_ms = time_graph_ms(lambda: KERNEL_BWD(
+                    v, ((H, W),), loc, w, g, need_locations=False,
+                    need_weights=False))
+                sums_ms = time_graph_ms(lambda: KERNEL_BWD(
+                    v, ((H, W),), loc, w, g, need_value=False))
+                print(f"deform_attn_2d_backward {name}: dvalue alone "
+                      f"{dv_ms:.4f} ms, dlocations and dweights alone "
+                      f"{sums_ms:.4f} ms (graph) [{card}]")
+    print("deform_attn_2d_backward timed plans: " + json.dumps(bwd_plans))
+
     # -- phase 6: full forward and eval ------------------------------------
-    launches_eval = full_forward_and_eval(model, ver, card)
+    launches_eval, bwd_launches_eval, samples = full_forward_and_eval(
+        model, ver, card)
+    del model
+
+    # -- phase 7: training -------------------------------------------------
+    launches_train, bwd_launches_train = training(ver, samples, card)
 
     ms, eager_ms, plain_ms, bound_ms, bound_by, floor_ms = timing[
         "B=1 float32"]
     ms4, eager_ms4, plain_ms4, bound_ms4, _, floor_ms4 = timing[
         "B=4 float32"]
+    # "launches" in both entries is the count over the timed train steps
+    # (phase 7, the training path); "launches_dump" and "launches_eval" are
+    # the counts of phases 4 and 6, each read from that run alone
     print(json.dumps({"kernels": [{
         "name": "deform_attn_2d",
         "route": "cuda",
         "source": "vln_ver_tpu_torch/csrc/deform_attn_2d.cu",
         "replaces": "vln_ver_tpu/ops/pallas_deform.py:38",
-        "launches": launches,
+        "launches": launches_train,
+        "launches_dump": launches,
         "launches_eval": launches_eval,
+        "launches_train": launches_train,
         "max_abs_err": main_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -679,6 +1038,34 @@ def main() -> None:
         "smem_floor_ms_b4": floor_ms4,
         "ms_bf16": timing["B=1 bfloat16"][0],
         "ms_bf16_b4": timing["B=4 bfloat16"][0],
+        "card": card,
+    }, {
+        "name": "deform_attn_2d_backward",
+        "route": "cuda",
+        "source": "vln_ver_tpu_torch/csrc/deform_attn_2d_bwd.cu",
+        "replaces": "vln_ver_tpu/ops/pallas_deform.py:237",
+        "launches": bwd_launches_train,
+        "launches_dump": bwd_launches,
+        "launches_eval": bwd_launches_eval,
+        "launches_train": bwd_launches_train,
+        "max_abs_err": max(bwd_main_errs.values()),
+        "max_abs_err_dvalue": bwd_main_errs["dvalue"],
+        "max_abs_err_dlocations": bwd_main_errs["dlocations"],
+        "max_abs_err_dweights": bwd_main_errs["dweights"],
+        "ms": bwd_timing["B=1 float32"][0],
+        "plain_ms": bwd_timing["B=1 float32"][2],
+        "bound_ms": bwd_timing["B=1 float32"][3],
+        "bound_by": bwd_timing["B=1 float32"][4],
+        "library_ms": None,
+        "bound_share": (bwd_timing["B=1 float32"][3]
+                        / bwd_timing["B=1 float32"][0]),
+        "eager_ms": bwd_timing["B=1 float32"][1],
+        "ms_b4": bwd_timing["B=4 float32"][0],
+        "eager_ms_b4": bwd_timing["B=4 float32"][1],
+        "plain_ms_b4": bwd_timing["B=4 float32"][2],
+        "bound_ms_b4": bwd_timing["B=4 float32"][3],
+        "ms_bf16": bwd_timing["B=1 bfloat16"][0],
+        "ms_bf16_b4": bwd_timing["B=4 bfloat16"][0],
         "card": card,
     }]}))
     print(json.dumps({"ok": True, "device": {

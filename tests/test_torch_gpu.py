@@ -17,7 +17,8 @@ import torch
 from vln_ver_tpu_torch.models import VERConfig, build_model
 from vln_ver_tpu_torch.geometry import make_pinhole_world2pixel
 from vln_ver_tpu_torch.ops.deform_attn import ms_deform_attn_2d
-from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, ms_deform_attn_2d_fused
+from vln_ver_tpu_torch.ops.deform_cuda import (KERNEL, KERNEL_BWD,
+                                              ms_deform_attn_2d_fused)
 
 pytestmark = pytest.mark.gpu
 
@@ -97,8 +98,73 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         with pytest.raises(ValueError, match="shared memory"):
             big = torch.zeros(1, 30 * 30, 4, 96, device=cuda)
             ms_deform_attn_2d_fused(big, ((30, 30),), locs[:1], wsm[:1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ms_deform_attn_2d_fused(v.requires_grad_(), hw, locs, wsm)
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, 24 * 24, 4, 128, device=cuda,
+                          dtype=torch.bfloat16)
+        g = torch.zeros(1, 57, 512, device=cuda, dtype=torch.bfloat16)
+        KERNEL_BWD(big, ((24, 24),), locs[:1], wsm[:1], g)
+
+
+def _grads(fn, v, locs, wsm, g):
+    v, locs, wsm = (t.detach().clone().requires_grad_()
+                    for t in (v, locs, wsm))
+    out = fn(v, locs, wsm)
+    out.backward(g)
+    return out, v.grad, locs.grad, wsm.grad
+
+
+@pytest.mark.parametrize("dtype,shape", [
+    (torch.float32, dict(h=14, w=14, nq=900, bs=6, heads=8, dim=96)),
+    (torch.bfloat16, dict(h=14, w=14, nq=900, bs=6, heads=8, dim=96)),
+    (torch.float32, dict(h=5, w=7, nq=57, lo=-30.0, hi=30.0)),  # far out
+    (torch.float32, dict(h=14, w=14, nq=57, dim=3)),
+    (torch.float32, dict(h=10, w=20, nq=57)),
+    (torch.float32, dict(h=14, w=14, nq=65, dim=40, pts=37)),   # P > 32
+])
+def test_backward_kernel_matches_plain_autograd(cuda, dtype, shape):
+    """dvalue, dlocations and dweights of the CUDA backward against
+    autograd of the plain version on the same inputs.  fp32: 1e-4 / 1e-5
+    on dvalue and dweights, 1e-3 / 1e-4 on dlocations (scaled by W and
+    H); bf16: 1e-2."""
+    v, locs, wsm = _case(cuda, dtype, **shape)
+    hw = ((shape["h"], shape["w"]),)
+    g = torch.randn(v.shape[0], locs.shape[1], v.shape[2] * v.shape[3],
+                    device=cuda, generator=torch.Generator(cuda).manual_seed(
+                        1)).to(dtype)
+    before = (KERNEL.launches, KERNEL_BWD.launches)
+    out, dv, dl, dw = _grads(
+        lambda *a: ms_deform_attn_2d_fused(a[0], hw, a[1], a[2]),
+        v, locs, wsm, g)
+    torch.cuda.synchronize()
+    assert (KERNEL.launches, KERNEL_BWD.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    _, rv, rl, rw = _grads(
+        lambda *a: ms_deform_attn_2d(a[0].float(), hw, a[1], a[2]),
+        v, locs, wsm, g.float())
+    assert dv.dtype == dtype and dl.dtype == dw.dtype == torch.float32
+    if dtype == torch.float32:
+        tol = {"dv": (1e-4, 1e-5), "dl": (1e-3, 1e-4), "dw": (1e-4, 1e-5)}
+    else:
+        tol = dict.fromkeys(("dv", "dl", "dw"), (1e-2, 1e-2))
+    for name, got, ref in (("dv", dv, rv), ("dl", dl, rl), ("dw", dw, rw)):
+        rtol, atol = tol[name]
+        torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
+                                   atol=atol, msg=name)
+
+
+def test_backward_kernel_skips_what_is_not_needed(cuda):
+    v, locs, wsm = _case(cuda)
+    hw = ((14, 14),)
+    g = torch.ones(v.shape[0], locs.shape[1], v.shape[2] * v.shape[3],
+                   device=cuda)
+    full = KERNEL_BWD(v, hw, locs, wsm, g)
+    only_v = KERNEL_BWD(v, hw, locs, wsm, g, need_locations=False,
+                        need_weights=False)
+    only_w = KERNEL_BWD(v, hw, locs, wsm, g, need_value=False,
+                        need_locations=False)
+    assert only_v[1] is None and only_v[2] is None and only_w[0] is None
+    torch.testing.assert_close(only_v[0], full[0], rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(only_w[2], full[2], rtol=0, atol=0)
 
 
 TINY = VERConfig(num_cams=3, feat_h=6, feat_w=6, in_channels=64,
@@ -255,3 +321,52 @@ def test_fp32_upsampler_on_card_is_not_tf32(cuda, monkeypatch):
         hook.remove()
     torch.testing.assert_close(up[str(cuda)], up["cpu"], rtol=1e-4,
                                atol=1e-4)
+
+
+def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
+    """One ``make_train_step`` on the card against one on the CPU: the same
+    weights and batch, dropout off, the host matcher, TF32 flags left on by
+    the caller (the step runs in fp32 all the same), the card's ReLUs on the
+    CPU step's masks (``utils.params.relu_masks``).  The forward and the
+    backward kernel launch once per encoder layer; the losses within rtol
+    1e-4, every parameter's gradient within 1e-3 of its L2 norm."""
+    import dataclasses
+
+    from vln_ver_tpu_torch.data import synthetic_samples
+    from vln_ver_tpu_torch.data.mp3d import collate
+    from vln_ver_tpu_torch.train import (TrainConfig, create_train_state,
+                                         make_train_step, to_device)
+    from vln_ver_tpu_torch.utils.params import grads_by_name, relu_masks
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
+    # the synthetic scenes label boxes with 17 classes, voxels with 16
+    cfg = dataclasses.replace(TINY, dropout_rate=0.0, num_classes=17,
+                              occupancy_classes=16)
+    batch = collate(synthetic_samples(
+        1, 2, num_cams=cfg.num_cams, feat_hw=cfg.feat_h,
+        feat_dim=cfg.in_channels,
+        occ_dims=(cfg.occ_zdim, cfg.occ_ydim, cfg.occ_xdim)))
+    tc = TrainConfig(warmup_steps=1, total_steps=10, matcher="host")
+    masks, res = [], {}
+    for device in (torch.device("cpu"), cuda):
+        model = build_model(cfg, device)
+        state = create_train_state(model, tc)
+        before = (KERNEL.launches, KERNEL_BWD.launches)
+        cpu = device.type == "cpu"
+        with relu_masks(model, record=masks if cpu else None,
+                        pin=None if cpu else masks):
+            m = make_train_step(cfg, tc)(state, to_device(batch, device),
+                                         seed=0)
+        after = (KERNEL.launches, KERNEL_BWD.launches)
+        res[device.type] = ({k: float(v) for k, v in m.items()},
+                            {n: g.cpu() for n, g in
+                             grads_by_name(model).items()},
+                            (after[0] - before[0], after[1] - before[1]))
+    (lc, gc, nc), (lg, gg, ng) = res["cpu"], res["cuda"]
+    assert nc == (0, 0) and ng == (cfg.encoder_layers, cfg.encoder_layers)
+    assert lc.keys() == lg.keys()
+    for k in lc:
+        assert lg[k] == pytest.approx(lc[k], rel=1e-4, abs=1e-7), k
+    for n, g in gc.items():
+        diff = float(torch.linalg.vector_norm(gg[n] - g))
+        assert diff <= 1e-3 * float(torch.linalg.vector_norm(g)) + 1e-6, n

@@ -48,7 +48,10 @@ def test_package_imports_without_h5py():
     code = ("import sys; sys.modules['h5py'] = None; "
             "import vln_ver_tpu_torch.get_occ, vln_ver_tpu_torch.ver_writer,"
             " vln_ver_tpu_torch.data, vln_ver_tpu_torch.convert,"
-            " vln_ver_tpu_torch.test, vln_ver_tpu_torch.evaluation.runner; "
+            " vln_ver_tpu_torch.test, vln_ver_tpu_torch.evaluation.runner,"
+            " vln_ver_tpu_torch.train.cli, vln_ver_tpu_torch.losses,"
+            " vln_ver_tpu_torch.matching, vln_ver_tpu_torch.utils.checkpoint,"
+            " vln_ver_tpu_torch.utils.params; "
             "from vln_ver_tpu_torch.data import synthetic_samples; "
             "synthetic_samples(1, 1, num_cams=1, feat_hw=2, feat_dim=4, "
             "occ_dims=(2, 4, 4)); print('ok')")

@@ -24,6 +24,17 @@ def gravity_boxes_from_raw(raw: np.ndarray) -> np.ndarray:
     return out
 
 
+def normalize_bbox(bboxes: torch.Tensor) -> torch.Tensor:
+    """(..., 7|9) gravity boxes -> (..., 8|10) normalized regression codes
+    (cx, cy, log w, log l, cz, log h, sin yaw, cos yaw[, vx, vy])."""
+    parts = [bboxes[..., 0:1], bboxes[..., 1:2], bboxes[..., 3:4].log(),
+             bboxes[..., 4:5].log(), bboxes[..., 2:3], bboxes[..., 5:6].log(),
+             bboxes[..., 6:7].sin(), bboxes[..., 6:7].cos()]
+    if bboxes.shape[-1] > 7:
+        parts += [bboxes[..., 7:8], bboxes[..., 8:9]]
+    return torch.cat(parts, dim=-1)
+
+
 def denormalize_bbox(normalized: torch.Tensor) -> torch.Tensor:
     """(..., 8|10) normalized codes -> (..., 7|9) gravity boxes:
     yaw = atan2(sin, cos), sizes exponentiated."""

@@ -17,6 +17,7 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from ..models.config import MP3D_FOCAL_REAL_CLASSES, VERConfig
+from ..train.state import TrainConfig
 
 
 class Config(dict):
@@ -211,6 +212,38 @@ def build_ver_config(cfg: Config, **overrides) -> VERConfig:
         kwargs["sca_query_capacity"] = int(cfg.get("sca_query_capacity"))
     kwargs.update(overrides)
     return VERConfig(**kwargs)
+
+
+def build_train_config(cfg: Config, steps_per_epoch: int,
+                       **overrides) -> TrainConfig:
+    """Map the optimizer, lr_config and runner dicts onto TrainConfig
+    (vocc.py:261-293: epoch-based warmup and cosine annealing), as the
+    JAX package does (vln_ver_tpu/config/api.py:238-266)."""
+    opt = cfg.get("optimizer", {})
+    lr_cfg = cfg.get("lr_config", {})
+    runner = cfg.get("runner", {})
+    grad = _get(cfg, "optimizer_config", "grad_clip", "max_norm",
+                default=300.0)
+    total_epochs = runner.get("max_epochs", cfg.get("total_epochs", 500))
+    warmup_iters = lr_cfg.get("warmup_iters", 30)
+    if lr_cfg.get("warmup_by_epoch", False):
+        warmup_steps = warmup_iters * steps_per_epoch
+    else:
+        warmup_steps = warmup_iters
+    kwargs: Dict[str, Any] = dict(
+        learning_rate=opt.get("lr", 1e-4),
+        weight_decay=opt.get("weight_decay", 0.01),
+        warmup_steps=max(int(warmup_steps), 1),
+        total_steps=max(int(total_epochs * steps_per_epoch), 2),
+        warmup_ratio=lr_cfg.get("warmup_ratio", 1.0 / 3.0),
+        min_lr_ratio=lr_cfg.get("min_lr_ratio", 1e-3),
+        grad_clip_norm=float(grad),
+        # mmcv lr hooks default to by_epoch=True: epoch-granular anneal
+        steps_per_epoch=(int(steps_per_epoch)
+                         if lr_cfg.get("by_epoch", True) else 0),
+    )
+    kwargs.update(overrides)
+    return TrainConfig(**kwargs)
 
 
 def dataset_kwargs(cfg: Config, split: str = "train") -> Optional[Dict]:

@@ -13,11 +13,16 @@ what the JAX package's ``export_state_dict`` writes and what
   weights.
 * :func:`load_checkpoint` loads a reference-format ``.pth`` by name,
   strictly.
+
+:func:`train_state_from_jax` carries a JAX train state across: the
+parameters and the AdamW moments, both through the same leaf mapping.
+Every map there is a reshape, transpose, flip or concatenation, a
+permutation of elements, so the moments map exactly, and so do gradients.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Mapping, Tuple
+from typing import Any, Callable, Dict, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -229,3 +234,50 @@ def load_checkpoint(model: nn.Module, path: str) -> List[str]:
         raise KeyError(f"{path} has keys the model has no parameter for: "
                        f"{res.unexpected_keys[:10]}")
     return skip
+
+
+def _adam_state(opt_state: Any):
+    """The node of an optax state that holds AdamW's ``count``, ``mu`` and
+    ``nu`` (``ScaleByAdamState`` in the chain, or the fused state)."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (list, tuple)):
+        for child in opt_state:
+            found = _adam_state(child)
+            if found is not None:
+                return found
+    return None
+
+
+def train_state_from_jax(params: Mapping, opt_state: Any, cfg: VERConfig,
+                         tc=None, device="cpu"):
+    """A JAX train state (a parameter tree and its optax AdamW state, numpy
+    or JAX array leaves) -> the port's
+    :class:`~vln_ver_tpu_torch.train.TrainState` on ``device``, with
+    ``exp_avg`` / ``exp_avg_sq`` from ``mu`` / ``nu`` and the step count
+    from the optimizer's update count, so the next update takes the
+    schedule's next lr.  Parameters the tree lacks (the inert positional
+    encoding) start with zero moments."""
+    from ..models.detector import VoxelFormer
+    from ..train.state import TrainConfig, create_train_state
+
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no AdamW state (count, mu, nu) in opt_state")
+    sd, _ = state_dict_from_jax(params, cfg)
+    mu, _ = state_dict_from_jax(adam.mu, cfg)
+    nu, _ = state_dict_from_jax(adam.nu, cfg)
+    count = int(np.asarray(adam.count))
+    model = VoxelFormer(cfg)
+    model.load_state_dict(sd, strict=True)
+    model.to(device)
+    tc = tc or TrainConfig()
+    state = create_train_state(model, tc)
+    for name, p in model.named_parameters():
+        step_dev = p.device if tc.fused_opt else "cpu"
+        state.optimizer.state[p] = {
+            "step": torch.tensor(float(count), device=step_dev),
+            "exp_avg": mu[name].to(p.device),
+            "exp_avg_sq": nu[name].to(p.device)}
+    state.step = count
+    return state

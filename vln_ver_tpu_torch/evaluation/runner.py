@@ -92,6 +92,10 @@ def evaluate_model(model, dataset, occ_thresholds: Sequence[float] = (0.25,),
     ssc = {thr: SSCMetrics(n_occ_cls) for thr in occ_thresholds}
     pred_rows, gt_rows, layout_rows = [], [], []
     overflow = 0
+    # dropout off for the eval, as the JAX runner evaluates
+    # deterministically; a model in training comes back in training
+    was_training = model.training
+    model.eval()
 
     for batch in iterate_batches(dataset, batch_size, indices=range(n)):
         bsz = batch["features"].shape[0]
@@ -145,6 +149,7 @@ def evaluate_model(model, dataset, occ_thresholds: Sequence[float] = (0.25,),
                     np.asarray(batch["gt_labels"][i], np.int32),
                     np.asarray(batch["gt_valid"][i], bool)))
                 pred_rows.append(tuple(f[i] for f in fields))
+    model.train(was_training)
 
     metrics: Dict[str, float] = {"sca_overflow": float(overflow)}
     if gt_rows:

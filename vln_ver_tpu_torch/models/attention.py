@@ -138,13 +138,12 @@ class SpatialCrossAttention(nn.Module):
     spatial_cross_attention.py:31-176): deformable attention from every
     query into every camera, invisible contributions masked away, the
     camera sum taken in fp32 and divided by the per-query hit count, then
-    ``output_proj`` and the residual.  Dropout is inert in inference and
-    left out."""
+    ``output_proj``, dropout and the residual."""
 
     def __init__(self, embed_dims: int = 768, num_heads: int = 8,
                  num_levels: int = 1, num_points: int = 8,
                  dtype: torch.dtype = torch.float32,
-                 query_capacity: int = 0):
+                 query_capacity: int = 0, dropout_rate: float = 0.1):
         super().__init__()
         if query_capacity > 0:
             raise NotImplementedError(
@@ -155,6 +154,7 @@ class SpatialCrossAttention(nn.Module):
         self.deformable_attention = CamDeformableAttention(
             embed_dims, num_heads, num_levels, num_points, dtype)
         self.output_proj = Dense(embed_dims, embed_dims, dtype)
+        self.dropout = nn.Dropout(dropout_rate)
 
     def forward(self, query: torch.Tensor, value: torch.Tensor,
                 reference_points_cam: torch.Tensor, bev_mask: torch.Tensor,
@@ -178,7 +178,7 @@ class SpatialCrossAttention(nn.Module):
         # per-query camera hit count (spatial_cross_attention.py:170-173)
         count = qmask.float().sum(dim=1).clamp_min(1.0)
         slots = (slots / count[..., None]).to(self.dtype)
-        return self.output_proj(slots) + residual
+        return self.dropout(self.output_proj(slots)) + residual
 
 
 class VoxelDeformableAttention3D(nn.Module):
@@ -186,11 +186,12 @@ class VoxelDeformableAttention3D(nn.Module):
     (reference VoxelCustomMSDeformableAttention).  The sampling is the
     plain gather form on every device; a depth-1 grid samples bilinearly
     (``voxel_deform_attn_3d``'s 2D route, the reference's for
-    ``decoder_on_bev``).  Dropout is inert in inference and left out."""
+    ``decoder_on_bev``).  Output projection, dropout, residual."""
 
     def __init__(self, embed_dims: int = 768, num_heads: int = 8,
                  num_levels: int = 1, num_points: int = 4,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.embed_dims = embed_dims
         self.num_heads = num_heads
@@ -203,6 +204,7 @@ class VoxelDeformableAttention3D(nn.Module):
         self.attention_weights = Dense(
             embed_dims, num_heads * num_levels * num_points)
         self.output_proj = Dense(embed_dims, embed_dims, dtype)
+        self.dropout = nn.Dropout(dropout_rate)
 
     @torch.no_grad()
     def init_sampling(self) -> None:
@@ -244,7 +246,7 @@ class VoxelDeformableAttention3D(nn.Module):
 
         out = voxel_deform_attn_3d(value.float(), spatial_shapes, locations,
                                    attn)
-        return self.output_proj(out.to(self.dtype)) + identity
+        return self.dropout(self.output_proj(out.to(self.dtype))) + identity
 
 
 class _PackedAttention(nn.Module):

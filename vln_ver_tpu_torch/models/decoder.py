@@ -40,11 +40,12 @@ class DecoderLayer(nn.Module):
                                cfg.dropout_rate, cfg.dtype),
             VoxelDeformableAttention3D(cfg.embed_dims, cfg.num_heads,
                                        cfg.num_levels,
-                                       cfg.decoder_num_points, cfg.dtype)])
+                                       cfg.decoder_num_points, cfg.dtype,
+                                       cfg.dropout_rate)])
         self.norms = nn.ModuleList([LayerNorm(cfg.embed_dims, cfg.dtype)
                                     for _ in range(3)])
         self.ffns = nn.ModuleList([FFN(cfg.embed_dims, cfg.ffn_dim,
-                                       cfg.dtype)])
+                                       cfg.dtype, cfg.dropout_rate)])
 
     def forward(self, query, value, query_pos, reference_points,
                 spatial_shapes: Sequence[Tuple[int, int, int]]):

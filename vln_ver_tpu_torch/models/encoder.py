@@ -13,6 +13,7 @@ from typing import Sequence, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import SpatialCrossAttention
 from .config import VERConfig
@@ -20,16 +21,19 @@ from .layers import Dense, LayerNorm
 
 
 class FFN(nn.Module):
-    """mmcv FFN: Linear -> ReLU -> Linear, residual add (its dropouts are
-    inert in inference and left out)."""
+    """mmcv FFN: Linear -> ReLU -> Dropout -> Linear -> Dropout, residual
+    add (vln_ver_tpu/models/encoder.py:29-45); the dropouts are the
+    identity in ``eval()``."""
 
     def __init__(self, embed_dims: int, feedforward_dim: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.1):
         super().__init__()
         self.layers = nn.Sequential(
             nn.Sequential(Dense(embed_dims, feedforward_dim, dtype),
-                          nn.ReLU()),
-            Dense(feedforward_dim, embed_dims, dtype))
+                          nn.ReLU(), nn.Dropout(dropout_rate)),
+            Dense(feedforward_dim, embed_dims, dtype),
+            nn.Dropout(dropout_rate))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layers(x) + x
@@ -46,11 +50,12 @@ class VoxelEncoderLayer(nn.Module):
                 "Queue 1, slice 5)")
         self.attentions = nn.ModuleList([SpatialCrossAttention(
             cfg.embed_dims, cfg.num_heads, cfg.num_levels,
-            cfg.sca_num_points, cfg.dtype, cfg.sca_query_capacity)])
+            cfg.sca_num_points, cfg.dtype, cfg.sca_query_capacity,
+            cfg.dropout_rate)])
         self.norms = nn.ModuleList([LayerNorm(cfg.embed_dims, cfg.dtype),
                                     LayerNorm(cfg.embed_dims, cfg.dtype)])
         self.ffns = nn.ModuleList([FFN(cfg.embed_dims, cfg.ffn_dim,
-                                       cfg.dtype)])
+                                       cfg.dtype, cfg.dropout_rate)])
 
     def forward(self, query, value, reference_points_cam, bev_mask,
                 spatial_shapes: Sequence[Tuple[int, int]]):
@@ -62,16 +67,25 @@ class VoxelEncoderLayer(nn.Module):
 
 
 class VoxelEncoder(nn.Module):
-    """Stack of ``encoder_layers`` VoxelEncoderLayers."""
+    """Stack of ``encoder_layers`` VoxelEncoderLayers.  With
+    ``remat_encoder`` each layer runs under ``torch.utils.checkpoint`` when
+    gradients are on: its activations are recomputed in the backward
+    instead of kept (vln_ver_tpu/models/encoder.py:115-118).  The replay
+    restores the default generators, so it redraws the same dropout
+    masks."""
 
     def __init__(self, cfg: VERConfig):
         super().__init__()
+        self.remat = cfg.remat_encoder
         self.layers = nn.ModuleList([VoxelEncoderLayer(cfg)
                                      for _ in range(cfg.encoder_layers)])
 
     def forward(self, bev_query, value, reference_points_cam, bev_mask,
                 spatial_shapes: Sequence[Tuple[int, int]]):
+        remat = self.remat and torch.is_grad_enabled()
         for layer in self.layers:
-            bev_query = layer(bev_query, value, reference_points_cam,
-                              bev_mask, spatial_shapes)
+            args = (bev_query, value, reference_points_cam, bev_mask,
+                    spatial_shapes)
+            bev_query = (checkpoint(layer, *args, use_reentrant=False)
+                         if remat else layer(*args))
         return bev_query

@@ -8,11 +8,14 @@ Usage:
       [--cfg-options key=value ...]
 
 ``--checkpoint`` takes a reference-format ``.pth`` (what
-``tools/export_voxelformer.py`` writes from a JAX checkpoint); without it
-the weights are random from seed 0.  ``--synthetic`` writes a synthetic
-test split where the annotation file is missing.  Prints the metric keys
-of ``tools/test.py`` (``mAP_*``, ``mAR_*``, ``miou``, ``iou``,
-``occ_precision``, ``occ_recall``) and fails on a capacity overflow.
+``tools/export_voxelformer.py`` writes from a JAX checkpoint), a train
+step directory, or a train checkpoint directory (``<work-dir>/ckpt`` of
+``python -m vln_ver_tpu_torch.train``), whose latest completed step is
+read; without it the weights are random from seed 0.  ``--synthetic``
+writes a synthetic test split where the annotation file is missing.
+Prints the metric keys of ``tools/test.py`` (``mAP_*``, ``mAR_*``,
+``miou``, ``iou``, ``occ_precision``, ``occ_recall``) and fails on a
+capacity overflow.
 """
 
 from __future__ import annotations
@@ -27,8 +30,9 @@ def parse_args(argv=None):
     p.add_argument("--cfg-options", nargs="+", default=None,
                    help="dotted config overrides: key.subkey=value")
     p.add_argument("--checkpoint", default=None,
-                   help="reference-format .pth state_dict; random weights "
-                        "from seed 0 if omitted")
+                   help="reference-format .pth state_dict, or a train "
+                        "checkpoint directory (its latest step); random "
+                        "weights from seed 0 if omitted")
     p.add_argument("--synthetic", action="store_true",
                    help="generate a synthetic test split when the "
                         "annotation file is missing")
@@ -57,6 +61,7 @@ def main(argv=None) -> dict:
     from .evaluation.runner import evaluate_model
     from .models.detector import build_model
     from .runtime import resolve_device, set_fp32_precision
+    from .utils.checkpoint import model_file
 
     device = resolve_device(args.device)
     cfg = apply_cfg_options(load_config(args.config), args.cfg_options)
@@ -83,7 +88,7 @@ def main(argv=None) -> dict:
 
     model = build_model(ver, device, seed=0)
     if args.checkpoint:
-        load_checkpoint(model, args.checkpoint)
+        load_checkpoint(model, model_file(args.checkpoint))
     try:
         metrics = evaluate_model(model, dataset,
                                  occ_thresholds=tuple(args.occ_thresholds),
