@@ -26,7 +26,8 @@ Phases (any failure exits nonzero, nothing is caught):
      sees it) and its plain version at batch 1 and batch 4 of the main
      path's shapes, print each timed launch's plan, the bytes bound and the
      shared-memory floor; then the same for the backward kernel against the
-     plain version's autograd backward;
+     plain version's autograd backward, with its own shared-memory floor
+     and plan, and its dvalue and dlocations / dweights halves alone;
   6. run the full forward and the eval path as ``python -m
      vln_ver_tpu_torch.test`` does (configs/verformer/vocc.py at full
      width, the same random weights from seed 0, 8 synthetic viewpoints
@@ -183,11 +184,15 @@ def grad_out_like(bs, nq, heads, d, dtype, seed, device):
         (bs, nq, heads * d)).astype(np.float32)).to(device, dtype)
 
 
-def smem_floor_ms(value, loc, spatial_hw):
+def smem_floor_ms(value, loc, spatial_hw, backward=False):
     """Least time for a gather from shared memory: each tap inside the map
-    reads its row's d values once, at the card's shared-memory rate."""
+    reads its row's d values once, at the card's shared-memory rate.  The
+    backward's floor adds, for each such tap, one fp32 add per channel
+    into dvalue's accumulator in shared memory (a read and a write, 8
+    bytes): d x (elt + 8) bytes a tap."""
     d = value.shape[-1]
-    return (valid_taps(loc, spatial_hw) * d * value.element_size()
+    per_value = value.element_size() + (8 if backward else 0)
+    return (valid_taps(loc, spatial_hw) * d * per_value
             / SMEM_BYTES_PER_S * 1e3)
 
 
@@ -839,8 +844,9 @@ def main() -> None:
         print(f"backward kernel check {name}: " + ", ".join(
             f"{k} max_abs_err={e:.3e} (rtol={bwd_tolerance[dt][k][0]}, "
             f"atol={bwd_tolerance[dt][k][1]})" for k, e in errs.items())
-            + f" {'FAIL ' + str(bad) if bad else 'ok'} [ctas {plan.ctas}, "
-            f"chunk {plan.chunk}]")
+            + f" {'FAIL ' + str(bad) if bad else 'ok'} [ctas {plan.ctas}: "
+            f"{plan.value_ctas} value in clusters of {plan.qsplit}, "
+            f"{plan.sum_ctas} sums of chunk {plan.chunk}]")
         if bad:
             fail(f"deform_attn_2d_backward disagrees with the plain "
                  f"version's autograd ({name}: {bad})")
@@ -970,6 +976,7 @@ def main() -> None:
             name = f"B={B} {str(dt).split('.')[-1]}"
             bwd_plans[name] = KERNEL_BWD.last_plan._asdict()
             bound_ms, bound_by = deform_bwd_bound(v, loc, w, (H, W))
+            floor_ms = smem_floor_ms(v, loc, (H, W), backward=True)
             plain_ms = None
             if dt is f32:
                 # the plain version's autograd backward alone: one forward
@@ -979,12 +986,21 @@ def main() -> None:
                 plain_ms = time_ms(lambda: torch.autograd.grad(
                     out, ins, g, retain_graph=True), iters=20, warmup=3)
                 del out, ins
-            bwd_timing[name] = (ms, eager_ms, plain_ms, bound_ms, bound_by)
+            bwd_timing[name] = (ms, eager_ms, plain_ms, bound_ms, bound_by,
+                                floor_ms)
             plain = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
+            plan = KERNEL_BWD.last_plan
             print(f"deform_attn_2d_backward {name} (bs={bs}): kernel "
                   f"{ms:.4f} ms (graph; eager {eager_ms:.4f} ms){plain}, "
                   f"bound {bound_ms:.4f} ms ({bound_by}), "
-                  f"{100 * bound_ms / ms:.1f}% of bound [{card}]")
+                  f"{100 * bound_ms / ms:.1f}% of bound, shared-memory floor "
+                  f"{floor_ms:.4f} ms ({100 * floor_ms / ms:.1f}%); plan: "
+                  f"{plan.ctas} CTAs ({plan.value_ctas} value CTAs of "
+                  f"{plan.slices} 32-channel slices a pair, "
+                  f"{plan.sum_ctas} sums CTAs of {plan.chunk} queries), "
+                  f"clusters of {plan.qsplit} value CTAs with {plan.walkers} "
+                  f"dV copies each, {plan.smem_bytes} B of shared memory a "
+                  f"CTA [{card}]")
             if name == "B=1 float32":
                 # its two halves: the dvalue scatter alone, the dlocations
                 # and dweights sums alone
@@ -1064,6 +1080,8 @@ def main() -> None:
         "eager_ms_b4": bwd_timing["B=4 float32"][1],
         "plain_ms_b4": bwd_timing["B=4 float32"][2],
         "bound_ms_b4": bwd_timing["B=4 float32"][3],
+        "smem_floor_ms": bwd_timing["B=1 float32"][5],
+        "smem_floor_ms_b4": bwd_timing["B=4 float32"][5],
         "ms_bf16": bwd_timing["B=1 bfloat16"][0],
         "ms_bf16_b4": bwd_timing["B=4 bfloat16"][0],
         "card": card,

@@ -99,10 +99,10 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
             big = torch.zeros(1, 30 * 30, 4, 96, device=cuda)
             ms_deform_attn_2d_fused(big, ((30, 30),), locs[:1], wsm[:1])
     with pytest.raises(ValueError, match="shared memory"):
-        big = torch.zeros(1, 24 * 24, 4, 128, device=cuda,
+        big = torch.zeros(1, 32 * 32, 4, 128, device=cuda,
                           dtype=torch.bfloat16)
         g = torch.zeros(1, 57, 512, device=cuda, dtype=torch.bfloat16)
-        KERNEL_BWD(big, ((24, 24),), locs[:1], wsm[:1], g)
+        KERNEL_BWD(big, ((32, 32),), locs[:1], wsm[:1], g)
 
 
 def _grads(fn, v, locs, wsm, g):
@@ -120,6 +120,11 @@ def _grads(fn, v, locs, wsm, g):
     (torch.float32, dict(h=14, w=14, nq=57, dim=3)),
     (torch.float32, dict(h=10, w=20, nq=57)),
     (torch.float32, dict(h=14, w=14, nq=65, dim=40, pts=37)),   # P > 32
+    (torch.float32, dict(h=14, w=14, nq=900, bs=6, heads=8, dim=256)),
+    (torch.float32, dict(h=14, w=14, nq=901, bs=6, heads=8, dim=96)),
+    (torch.float32, dict(h=14, w=14, nq=900, bs=1, heads=8, dim=96)),
+    (torch.float32, dict(h=14, w=14, nq=900, bs=48, heads=8, dim=96)),  # B=8
+    (torch.bfloat16, dict(h=14, w=14, nq=57, dim=3)),   # odd bf16 rows
 ])
 def test_backward_kernel_matches_plain_autograd(cuda, dtype, shape):
     """dvalue, dlocations and dweights of the CUDA backward against
@@ -150,6 +155,42 @@ def test_backward_kernel_matches_plain_autograd(cuda, dtype, shape):
         rtol, atol = tol[name]
         torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
                                    atol=atol, msg=name)
+
+
+def test_backward_kernel_is_reproducible(cuda):
+    """Two launches on the same inputs give bitwise-equal dvalue,
+    dlocations and dweights: every sum runs in a fixed order (one warp per
+    (query, point); private dV copies added up in order), at batch 1,
+    where the value CTAs split each slice over a cluster."""
+    v, locs, wsm = _case(cuda, bs=6, heads=8, dim=96, nq=900)
+    g = torch.randn(6, 900, 8 * 96, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2))
+    a = KERNEL_BWD(v, ((14, 14),), locs, wsm, g)
+    b = KERNEL_BWD(v, ((14, 14),), locs, wsm, g)
+    torch.cuda.synchronize()
+    assert KERNEL_BWD.last_plan.qsplit > 1
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_backward_kernel_writes_bf16_dvalue_without_a_workspace(cuda):
+    """bf16 dvalue comes out of the kernel as it is: the call's peak
+    allocation stays below its three outputs plus an fp32 dvalue
+    workspace (twice dvalue's bytes), which it no longer takes; the
+    caching allocator may hand out a block a little larger than asked."""
+    v, locs, wsm = _case(cuda, torch.bfloat16, bs=6, heads=8, dim=96,
+                         nq=900)
+    g = torch.randn(6, 900, 8 * 96, device=cuda).to(torch.bfloat16)
+    KERNEL_BWD(v, ((14, 14),), locs, wsm, g)   # build, load, plan
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dv, dl, dw = KERNEL_BWD(v, ((14, 14),), locs, wsm, g)
+    torch.cuda.synchronize()
+    outputs = sum(t.numel() * t.element_size() for t in (dv, dl, dw))
+    assert dv.dtype == torch.bfloat16
+    workspace = dv.numel() * 4
+    assert torch.cuda.max_memory_allocated() - base < outputs + workspace
 
 
 def test_backward_kernel_skips_what_is_not_needed(cuda):

@@ -3,8 +3,8 @@
 Every ``vln_ver_tpu_torch/csrc/*.cu`` compiles on its own into a shared
 library with a plain C interface under ``.kernel_build/`` at the checkout's
 root (listed in ``.gitignore``).  A library's file name carries a hash of
-its source and flags, so a changed source rebuilds and an unchanged one is
-reused.  Nothing here runs at import time.
+its source, the shared headers ``csrc/*.cuh`` and the flags, so a changed
+source or header rebuilds and an unchanged one is reused.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -33,7 +33,10 @@ def nvcc_path() -> str:
 
 
 def _lib_path(src: Path) -> Path:
-    digest = hashlib.sha256(src.read_bytes()
+    # every header of csrc/ goes into every library's hash: an edited header
+    # rebuilds each source that may include it
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{src.stem}-{digest[:12]}.so"
 

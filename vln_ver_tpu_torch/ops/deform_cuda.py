@@ -20,6 +20,7 @@ On a CUDA tensor that needs a gradient the call is a
 from __future__ import annotations
 
 import ctypes
+import heapq
 from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
@@ -131,56 +132,184 @@ def cta_tiles(plan: LaunchPlan, nq: int, cta: int
 
 
 class BackwardPlan(NamedTuple):
-    """How one backward launch cuts the work: CTA ``i`` takes queries
-    ``[c * chunk, (c + 1) * chunk)`` of the (slot, head) pair
-    ``i // chunks``, with ``c = i % chunks``."""
-    chunk: int        # queries per CTA
-    chunks: int       # CTAs per (slot, head) pair: ceil(nq / chunk)
-    ctas: int         # grid: bs * heads * chunks
-    smem_bytes: int   # the pair's fp32 dV tile, or 0 without dV
+    """How one backward launch cuts the work.  The value CTAs come first,
+    ``qsplit`` of them, one thread-block cluster, for each (slot, head,
+    32-channel slice): CTA ``i < value_ctas`` is rank ``i % qsplit`` of
+    the unit ``u = i // qsplit``, channels ``[32 * (u % slices), ... +
+    32)`` of dV for the (slot, head) pair ``u // slices``; its first
+    ``walkers`` warps each take every ``walkers * qsplit``-th query into a
+    private copy (:func:`backward_cta_work`).  CTA ``value_ctas + j`` sums
+    dweights and dlocations of queries ``[c * chunk, (c + 1) * chunk)`` of
+    the pair ``j // chunks``, with ``c = j % chunks``, over all channels.
+    The grid is padded to whole clusters with CTAs that do nothing."""
+    value_ctas: int   # bs * heads * slices * qsplit, or 0 without dvalue
+    slices: int       # 32-channel slices of d: ceil(d / 32)
+    walkers: int      # warps of a value CTA, each with its own dV copy
+    qsplit: int       # value CTAs (one cluster) per (slot, head, slice)
+    chunk: int        # queries of a sums CTA (0 without the sums)
+    chunks: int       # sums CTAs per pair: ceil(nq / chunk), or 0
+    sum_ctas: int     # bs * heads * chunks
+    ctas: int         # value_ctas + sum_ctas, padded to whole clusters
+    row_stride: int   # elements between staged V rows (sums CTAs)
+    tile_bytes: int   # a sums CTA's staged V tile, or 0
+    acc_bytes: int    # one fp32 dV slice copy, hw x 32 x 4, or 0
+    smem_bytes: int   # dynamic shared memory of one CTA
 
 
-# csrc/deform_attn_2d_bwd.cu: 8 warps a CTA, a warp per query
+# csrc/deform_attn_2d_bwd.cu: kWarps, kSlice, kBarrierBytes and the per-warp
+# tap lists of the two kinds of CTA (kSumListBytes, kValueListBytes)
 BWD_WARPS = 8
-# a CTA's queries per (slot, head) pair, at the least
-BWD_MIN_CHUNK = 64
+BWD_SLICE = 32
+BWD_BARRIER_BYTES = 128
+BWD_SUM_LIST_BYTES = 32 * 4
+BWD_VALUE_LIST_BYTES = 32 * 8
 # the SM's 228 KB of shared memory, less 1 KB that each CTA reserves
 SM_SMEM_BYTES = 233472
+# Cost model of one query step (8 points x 4 taps), in warp instructions,
+# for balancing the two kinds of CTA: the tap setup and list, a value
+# CTA's merge of taps that share a row, the reduce-scatter of the sums
+# CTAs, and per tap inside the map (about 24 of 32 on the main path's
+# data) a value CTA's two list reads, load, FMA and store, and a sums
+# CTA's list read plus, per lane load, its load and FMA (fp32) or load,
+# two unpacks and two FMAs (bf16 pair).
+_STEP_SETUP, _STEP_MERGE, _STEP_REDUCE, _STEP_TAPS = 40, 20, 130, 24
+_VALUE_PER_TAP = 5
+# a value CTA's copies are sized so that three CTAs fit on an SM
+_VALUE_REGION = SM_SMEM_BYTES // 3 - 1024 - BWD_BARRIER_BYTES
+# a value walker is bound by the latency of its steps, so the query split
+# aims at this many value CTAs per SM; a cluster holds at most 8 CTAs
+_VALUE_CTAS_PER_SM, _MAX_CLUSTER = 2, 8
 
 
-def plan_backward(bs: int, heads: int, nq: int, hw: int, d: int,
-                  sm_count: int, with_dvalue: bool = True) -> BackwardPlan:
-    """The backward kernel's grid for value ``(bs, hw, heads, d)`` and
-    ``nq`` queries.  Each CTA keeps one (slot, head) pair's dV tile, hw x d
-    in fp32, in shared memory, and adds it to device memory at its end;
-    the queries of a pair are cut into chunks so that the grid fills one
-    wave of the CTAs that fit on the card's ``sm_count`` SMs, but no chunk
-    is shorter than ``BWD_MIN_CHUNK`` queries, so that a CTA's final add
-    of its tile stays small beside its scatter (4 taps x P points x d per
-    query).  Raises ``ValueError`` where the tile does not fit in shared
-    memory."""
+def _bwd_costs(plan: BackwardPlan, nq: int, d: int,
+               elt: int) -> Tuple[int, int]:
+    """Modelled cost of a value CTA and of a sums CTA (one query step
+    each: both scale alike with P)."""
+    kc = -(-d // (32 * (4 // elt)))
+    per_load = 2 if elt == 4 else 5
+    value = (nq * (_STEP_SETUP + _STEP_MERGE + _STEP_TAPS * _VALUE_PER_TAP)
+             // plan.qsplit)
+    sums = plan.chunk * (_STEP_SETUP + _STEP_REDUCE
+                         + _STEP_TAPS * (1 + kc * per_load))
+    return value, sums
+
+
+def backward_sm_loads(plan: BackwardPlan, nq: int, d: int, elt: int,
+                      sm_count: int) -> List[int]:
+    """Each SM's modelled work when the grid's CTAs go, in order, to the
+    least-loaded SM (list scheduling, the block scheduler's greedy fill)."""
+    value, sums = _bwd_costs(plan, nq, d, elt)
+    loads = [0] * sm_count
+    heap = [(0, sm) for sm in range(sm_count)]
+    for cta in range(plan.ctas):
+        load, sm = heapq.heappop(heap)
+        if cta < plan.value_ctas:
+            load += value
+        elif cta < plan.value_ctas + plan.sum_ctas:
+            load += sums
+        loads[sm] = load
+        heapq.heappush(heap, (load, sm))
+    return loads
+
+
+def plan_backward(bs: int, heads: int, nq: int, hw: int, d: int, elt: int,
+                  sm_count: int, need_value: bool = True,
+                  need_sums: bool = True) -> BackwardPlan:
+    """The backward kernel's grid for value ``(bs, hw, heads, d)`` of
+    ``elt``-byte elements and ``nq`` queries on ``sm_count`` SMs, for dV
+    (``need_value``) and dlocations / dweights (``need_sums``).
+
+    Value CTAs keep a (slot, head, 32-channel) slice of dV, hw x 32 fp32,
+    in shared memory over all queries, one copy for each of ``walkers``
+    warps (as many as fit in a third of the SM, at most 8), each copy with
+    a tap list; sums CTAs stage one (slot, head) V tile, hw rows at
+    ``row_stride`` (``d`` rounded up to 4 bytes), followed by 8 per-warp
+    tap lists.  Each (slot, head, slice) is split over ``qsplit`` value
+    CTAs, the least power of two (at most 8) that gives the card two value
+    CTAs an SM.  The sums CTAs' chunk (a multiple of 8 queries, one per
+    warp and round) minimises the heaviest SM's modelled work
+    (:func:`backward_sm_loads`; ties go to fewer chunks), trying up to 4
+    sums CTAs per SM.  Raises ``ValueError``
+    where a region does not fit in shared memory or the grid does not fit
+    the kernel's int indices."""
+    if elt not in (2, 4):
+        raise ValueError(f"element size {elt}: the kernel takes fp32 (4) "
+                         "or bf16 (2)")
     if not 0 < d <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d} outside (0, {MAX_HEAD_DIM}]")
     if min(bs, heads, nq, hw, sm_count) < 1:
         raise ValueError(f"empty launch: bs={bs} heads={heads} nq={nq} "
                          f"hw={hw} sm_count={sm_count}")
-    tile = hw * d * 4 if with_dvalue else 0
-    if tile > MAX_SMEM_BYTES:
-        raise ValueError(
-            f"the backward's fp32 dV tile of one (slot, head) pair ({hw} x "
-            f"{d}) needs {tile} B of shared memory, more than "
-            f"{MAX_SMEM_BYTES}")
-    per_sm = max(1, min(2048 // (32 * BWD_WARPS),
-                        SM_SMEM_BYTES // (tile + 1024)))
+    if not (need_value or need_sums):
+        raise ValueError("nothing to compute")
     pairs = bs * heads
-    want = -(-per_sm * sm_count // pairs)
-    chunks = max(1, min(want, -(-nq // BWD_MIN_CHUNK)))
-    chunk = -(-nq // chunks)
-    chunks = -(-nq // chunk)
-    if pairs * chunks > _INT_MAX:
-        raise ValueError(f"{pairs * chunks} CTAs exceed the grid's limit")
-    return BackwardPlan(chunk=chunk, chunks=chunks, ctas=pairs * chunks,
-                        smem_bytes=tile)
+    slices = -(-d // BWD_SLICE)
+    row_stride = _round_up(d * elt, 4) // elt
+    tile = _round_up(hw * row_stride * elt, 128) if need_sums else 0
+    acc = hw * BWD_SLICE * 4 if need_value else 0
+    copy = acc + BWD_VALUE_LIST_BYTES
+    walkers = (max(1, min(BWD_WARPS, _VALUE_REGION // copy)) if need_value
+               else 0)
+    region = max(tile + BWD_WARPS * BWD_SUM_LIST_BYTES if need_sums else 0,
+                 walkers * copy)
+    smem = BWD_BARRIER_BYTES + region
+    if smem > MAX_SMEM_BYTES:
+        what = (f"V tile ({hw} x {d}, {elt}-byte values)" if tile >= acc
+                else f"fp32 dV slice ({hw} x {BWD_SLICE})")
+        raise ValueError(f"the backward's {what} of one (slot, head) pair "
+                         f"needs {smem} B of shared memory, more than "
+                         f"{MAX_SMEM_BYTES}")
+    qsplit = 1
+    if need_value:
+        while (qsplit < _MAX_CLUSTER
+               and pairs * slices * qsplit < _VALUE_CTAS_PER_SM * sm_count):
+            qsplit *= 2
+    value_ctas = pairs * slices * qsplit if need_value else 0
+    chunk = chunks = 0
+    if need_sums:
+        best = None
+        top = max(1, min(-(-nq // BWD_WARPS),
+                         -(-4 * sm_count // pairs)))
+        for want in range(1, top + 1):
+            c = _round_up(-(-nq // want), BWD_WARPS)
+            n = -(-nq // c)
+            trial = BackwardPlan(value_ctas, slices, walkers, qsplit, c, n,
+                                 pairs * n, value_ctas + pairs * n,
+                                 row_stride, tile, acc, smem)
+            key = (max(backward_sm_loads(trial, nq, d, elt, sm_count)), n)
+            if best is None or key < best[0]:
+                best = (key, c, n)
+        _, chunk, chunks = best
+    ctas = _round_up(value_ctas + pairs * chunks, qsplit)
+    if ctas > _INT_MAX:
+        raise ValueError(f"{ctas} CTAs exceed the grid's limit")
+    return BackwardPlan(value_ctas=value_ctas, slices=slices,
+                        walkers=walkers, qsplit=qsplit, chunk=chunk,
+                        chunks=chunks, sum_ctas=pairs * chunks, ctas=ctas,
+                        row_stride=row_stride, tile_bytes=tile,
+                        acc_bytes=acc, smem_bytes=smem)
+
+
+def backward_cta_work(plan: BackwardPlan, nq: int, d: int, cta: int
+                      ) -> Tuple[str, int, int, int, Sequence[int]]:
+    """What CTA ``cta`` computes, as (kind, pair, first channel, end
+    channel, queries), kind "value" (its share of a dV slice), "sums"
+    (dweights and dlocations) or "pad" (nothing): the kernel's arithmetic,
+    for the tests."""
+    if cta < plan.value_ctas:
+        unit, rank = divmod(cta, plan.qsplit)
+        pair, s = divmod(unit, plan.slices)
+        c0 = s * BWD_SLICE
+        g = plan.walkers * plan.qsplit
+        first = rank * plan.walkers
+        queries = sorted(q for k in range(first, first + plan.walkers)
+                         for q in range(k, nq, g))
+        return ("value", pair, c0, min(d, c0 + BWD_SLICE), queries)
+    if cta >= plan.value_ctas + plan.sum_ctas:
+        return ("pad", -1, 0, 0, range(0))
+    pair, c = divmod(cta - plan.value_ctas, plan.chunks)
+    q0 = c * plan.chunk
+    return ("sums", pair, 0, d, range(q0, min(nq, q0 + plan.chunk)))
 
 
 def _check_inputs(value: torch.Tensor,
@@ -312,11 +441,24 @@ class DeformAttn2dKernel(_CudaKernel):
 
 class DeformAttn2dBackwardKernel(_CudaKernel):
     """The backward of :class:`DeformAttn2dKernel`
-    (``csrc/deform_attn_2d_bwd.cu``), with its own launch count."""
+    (``csrc/deform_attn_2d_bwd.cu``), with its own launch count and its
+    plans cached per shape."""
 
     library, symbol = "deform_attn_2d_bwd", "deform_attn_2d_backward"
-    argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 12
+    argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 19
                 + [ctypes.c_void_p])
+
+    def __init__(self):
+        super().__init__()
+        self._plans: Dict[tuple, BackwardPlan] = {}
+
+    def plan(self, bs, heads, nq, hw, d, elt, device, need_value,
+             need_sums) -> BackwardPlan:
+        key = (bs, heads, nq, hw, d, elt, _sm_count(device), need_value,
+               need_sums)
+        if key not in self._plans:
+            self._plans[key] = plan_backward(*key)
+        return self._plans[key]
 
     def __call__(self, value: torch.Tensor,
                  spatial_shapes: Sequence[Tuple[int, int]],
@@ -325,7 +467,7 @@ class DeformAttn2dBackwardKernel(_CudaKernel):
                  need_locations: bool = True, need_weights: bool = True):
         """(dvalue, dlocations, dweights) of the forward's output gradient
         ``grad_out`` (bs, nq, heads*d), each None where not needed: dvalue
-        in the value dtype (summed in an fp32 workspace), the other two
+        in the value dtype, written by the kernel as it is, the other two
         fp32."""
         bs, H, W, heads, d, nq, P = _check_inputs(value, spatial_shapes,
                                                   locations, weights)
@@ -338,15 +480,15 @@ class DeformAttn2dBackwardKernel(_CudaKernel):
                             f"{value.device}")
         if not grad_out.is_contiguous():
             raise ValueError("grad_out must be contiguous")
-        if not (need_value or need_locations or need_weights):
+        need_sums = need_locations or need_weights
+        if not (need_value or need_sums):
             return None, None, None
         dev = value.device
-        dv = (torch.zeros(value.shape, dtype=torch.float32, device=dev)
-              if need_value else None)
+        plan = self.plan(bs, heads, nq, H * W, d, value.element_size(), dev,
+                         need_value, need_sums)
+        dv = torch.empty_like(value) if need_value else None
         dl = torch.empty_like(locations) if need_locations else None
         dw = torch.empty_like(weights) if need_weights else None
-        plan = plan_backward(bs, heads, nq, H * W, d, _sm_count(dev),
-                             with_dvalue=need_value)
 
         def ptr(t):
             return None if t is None else t.data_ptr()
@@ -354,10 +496,11 @@ class DeformAttn2dBackwardKernel(_CudaKernel):
         self._launch(plan, dev, value.data_ptr(), locations.data_ptr(),
                      weights.data_ptr(), grad_out.data_ptr(), ptr(dv),
                      ptr(dl), ptr(dw), bs, H, W, heads, d, nq, P,
-                     int(value.dtype == torch.bfloat16), plan.chunk,
-                     plan.chunks, plan.ctas, plan.smem_bytes)
-        if dv is not None and value.dtype != torch.float32:
-            dv = dv.to(value.dtype)
+                     int(value.dtype == torch.bfloat16), plan.value_ctas,
+                     plan.slices, plan.walkers, plan.qsplit, plan.chunk,
+                     plan.chunks, plan.ctas,
+                     plan.row_stride, plan.tile_bytes, plan.acc_bytes,
+                     plan.smem_bytes)
         return dv, dl, dw
 
 
