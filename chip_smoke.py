@@ -21,6 +21,20 @@ Phases (any failure exits nonzero, nothing is caught):
      dump).  The kernel's launch count must be 3 per batch, every volume
      finite and (768, 4, 15, 15), and one batch's bev_embed must match a
      CPU run of the plain version;
+  4b. the sparse lift (the same model and viewpoints with
+     sca_query_capacity=256): max_visible_queries of the viewpoints within
+     256, sca_overflow 0, 3 launches per batch at nq=256, the volumes those
+     of 4 within 1e-5; volumes/s, and the kernel's graph time at nq=256
+     against nq=900;
+  4c. the int8 upload (ver_writer.quantize_int8 on the host, dequantised on
+     the card): the volumes against a CPU int8 run within 1e-4; the
+     largest deviation from 4's fp32 volumes, the upload bytes per volume;
+  4d. the fused image path (uint8 views -> ViT-B/16 -> lift in one call,
+     get_occ.make_bev_only; 16 synthetic viewpoints of six 224 x 224 views,
+     random ViT weights from seed 1): one viewpoint's ViT features against
+     the CPU within 1e-4, the volumes against a two-stage run on the card
+     (ViT, then the feature path) within 1e-5; volumes/s, the ViT's device
+     ms per batch, peak memory, upload bytes per volume;
   5. time the kernel (CUDA events over a CUDA graph of launches, so the
      wrapper's host time is left out; and over eager launches, as a caller
      sees it) and its plain version at batch 1 and batch 4 of the main
@@ -51,8 +65,12 @@ Phases (any failure exits nonzero, nothing is caught):
      matched queries, the losses and every parameter's gradient.  Print
      train steps/s, peak device memory, the device time of the forward,
      losses and matching, backward and optimizer (CUDA events), the busy
-     share and largest kernels of one profiled step, then the ``kernels``
-     line.
+     share and largest kernels of one profiled step.  Then one step with
+     remat_encoder (the forward kernel replayed on autograd's thread)
+     against one without, and one step with sca_query_capacity=256
+     against the dense step (the backward kernel at nq=256), each on the
+     card with the same weights and batch: the same matched queries, the
+     losses and every gradient.  Then the ``kernels`` line.
 The last line is the ``{"ok": true, "device": ...}`` JSON object.
 """
 
@@ -78,6 +96,10 @@ SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
 
 N_VIEWPOINTS = 16
 BATCH = 4
+# phase 4b: the sparse lift's capacity (vln_ver_tpu/models/config.py:125)
+SPARSE_K = 256
+# phase 4d: ViT-B/16 (HF ViTConfig defaults) in front of the lift
+VIT_PATCH, VIT_LAYERS, VIT_HEADS = 16, 12, 12
 # phase 6: synthetic viewpoints with ground truth, eval batch
 EVAL_SCANS, EVAL_VPS_PER_SCAN, EVAL_BATCH = 2, 4, 2
 # phase 7: train steps at batch samples_per_gpu over phase 6's viewpoints
@@ -514,7 +536,7 @@ def full_forward_and_eval(model, ver, card):
 
 def training(ver, samples, card):
     """Phase 7; returns the forward and backward kernel launches over the
-    timed train steps."""
+    timed train steps, and those of the remat and capacity steps."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -698,12 +720,12 @@ def training(ver, samples, card):
              f"{int((mc != mh).sum())} of {mc.numel()} GT slots: a near-tie "
              f"in the matching cost flipped (card {mc.tolist()}, CPU "
              f"{mh.tolist()}); the tolerances below assume equal matches")
-    worst_loss = max(abs(lc[k] - lh[k]) / max(abs(lh[k]), 1e-12)
-                     for k in lh if k != "sca_overflow")
+    worst_loss = worst_relative(lc, lh)
     bad = [k for k in lh if abs(lc[k] - lh[k]) > 1e-4 * abs(lh[k]) + 1e-7]
     print(f"train step card vs CPU (vocc.py widths, occupancy grid {grid}, "
           f"host matcher): matched queries equal ({mc.numel()} GT slots), "
-          f"largest relative loss difference {worst_loss:.3e} (rtol 1e-4) "
+          f"largest relative loss difference {worst_loss[0]:.3e} "
+          f"({worst_loss[1]}) (rtol 1e-4) "
           f"{'ok' if not bad else 'FAIL ' + str(bad)}; grad_norm card "
           f"{lc['grad_norm']:.6f}, CPU {lh['grad_norm']:.6f}")
     if bad:
@@ -724,7 +746,347 @@ def training(ver, samples, card):
           f"step took {cpu_s:.2f}s")
     if failed:
         fail(f"card gradients disagree with the CPU step: {failed[:5]}")
-    return fwd, bwd
+    return fwd, bwd, remat_and_capacity(ver, tc, batches[0], card)
+
+
+def worst_relative(got, ref):
+    """(largest relative difference, its key) over the losses: every
+    metric but ``grad_norm`` and ``sca_overflow``."""
+    return max((abs(got[k] - ref[k]) / max(abs(ref[k]), 1e-12), k)
+               for k in ref if k not in ("grad_norm", "sca_overflow"))
+
+
+def card_step(cfg, tc, host_batch, record=None, pin=None):
+    """One ``make_train_step`` on the card from the seed-0 weights: (the
+    matched query of every GT slot of every match the step made, its
+    metrics, every parameter's gradient, forward and backward launches and
+    the nq of their last launches).  ``record`` / ``pin``: the ReLU masks
+    (``utils.params.relu_masks``)."""
+    from unittest import mock
+
+    import torch
+
+    from vln_ver_tpu_torch.models import build_model
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    from vln_ver_tpu_torch.train import (create_train_state, make_train_step,
+                                         objective, to_device)
+    from vln_ver_tpu_torch.utils.params import grads_by_name, relu_masks
+
+    matches, inner = [], objective._match
+
+    def match(*args, **kw):
+        out = inner(*args, **kw)
+        matches.append(out.cpu().flatten())
+        return out
+
+    model = build_model(cfg, "cuda", seed=0)
+    state = create_train_state(model, tc)
+    batch = to_device(host_batch, torch.device("cuda"))
+    KERNEL.launches = KERNEL_BWD.launches = 0
+    KERNEL.last_nq = KERNEL_BWD.last_nq = None
+    with mock.patch.object(objective, "_match", match), \
+            relu_masks(model, record=record, pin=pin):
+        metrics = make_train_step(cfg, tc)(state, batch, seed=1)
+    torch.cuda.synchronize()
+    return (torch.cat(matches), {k: float(v) for k, v in metrics.items()},
+            {n: g.cpu() for n, g in grads_by_name(model).items()},
+            (KERNEL.launches, KERNEL_BWD.launches),
+            (KERNEL.last_nq, KERNEL_BWD.last_nq))
+
+
+def hold_step(name, got, ref, rtol, grad_tol, card):
+    """Fail unless two ``card_step`` results agree: the same matched
+    queries, the losses within ``rtol``, each parameter's gradient within
+    ``grad_tol`` of its L2 norm."""
+    import torch
+    if not torch.equal(got[0], ref[0]):
+        fail(f"{name}: matched queries differ in "
+             f"{int((got[0] != ref[0]).sum())} of {ref[0].numel()} slots")
+    loss_rel, loss_key = worst_relative(got[1], ref[1])
+    bad = [k for k in ref[1] if k not in ("grad_norm", "sca_overflow")
+           and abs(got[1][k] - ref[1][k]) > rtol * abs(ref[1][k]) + 1e-7]
+    worst, failed = (0.0, None), []
+    for n, g in ref[2].items():
+        diff = float(torch.linalg.vector_norm((got[2][n] - g).double()))
+        norm = float(torch.linalg.vector_norm(g.double()))
+        if diff > grad_tol * norm + 1e-7:
+            failed.append(n)
+        if norm > 0 and diff / norm > worst[0]:
+            worst = (diff / norm, n)
+    print(f"{name}: matched queries equal ({ref[0].numel()} slots), "
+          f"largest relative loss difference {loss_rel:.3e} ({loss_key}) "
+          f"(rtol {rtol}), worst relative gradient L2 difference "
+          f"{worst[0]:.3e} ({worst[1]}) (within {grad_tol}); launches "
+          f"forward + backward {got[3]} at nq {got[4]} "
+          f"{'ok' if not bad and not failed else 'FAIL'} [{card}]")
+    if bad or failed:
+        fail(f"{name}: losses {bad}, gradients {failed[:5]}")
+
+
+def remat_and_capacity(ver, tc, host_batch, card):
+    """Phase 7's remat and capacity steps; returns their launches.
+
+    Every step here runs with cuDNN's deterministic algorithms: the
+    upsampler's backward convolutions otherwise add in a varying order,
+    which moved the upsampler's weight gradients by 1.255e-04 of their
+    norm between two steps of identical forwards, more than the remat
+    check's 1e-4."""
+    import torch
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _remat_and_capacity(ver, tc, host_batch, card)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _remat_and_capacity(ver, tc, host_batch, card):
+    base = card_step(ver, tc, host_batch)
+    remat = card_step(dataclasses.replace(ver, remat_encoder=True), tc,
+                      host_batch)
+    layers = ver.encoder_layers
+    if remat[3] != (2 * layers, layers):
+        fail(f"the remat step launched the forward and backward kernels "
+             f"{remat[3]} times, expected ({2 * layers}, {layers})")
+    hold_step("train step with remat_encoder vs without (card)", remat,
+              base, 1e-5, 1e-4, card)
+    # dense vs capacity: the host matcher, dropout off, the capacity step's
+    # ReLUs on the dense step's masks (the two forwards differ by rounding)
+    tc_host = dataclasses.replace(tc, matcher="host")
+    quiet = dataclasses.replace(ver, dropout_rate=0.0)
+    masks = []
+    dense = card_step(quiet, tc_host, host_batch, record=masks)
+    sparse = card_step(dataclasses.replace(quiet,
+                                           sca_query_capacity=SPARSE_K),
+                       tc_host, host_batch, pin=masks)
+    if sparse[1]["sca_overflow"] or sparse[3] != (layers, layers) \
+            or sparse[4] != (SPARSE_K, SPARSE_K):
+        fail(f"the capacity step: overflow {sparse[1]['sca_overflow']}, "
+             f"launches {sparse[3]} at nq {sparse[4]}, expected "
+             f"({layers}, {layers}) at nq {SPARSE_K}")
+    hold_step(f"train step with sca_query_capacity={SPARSE_K} vs dense "
+              f"(card)", sparse, dense, 1e-4, 1e-3, card)
+    return dict(fwd_remat=remat[3][0], bwd_remat=remat[3][1],
+                fwd_capacity=sparse[3][0], bwd_capacity=sparse[3][1])
+
+
+def drive(bev_only, host_batches, ver, device):
+    """Upload each batch of host arrays, run ``bev_only`` on them and bring
+    the volumes back in the dump layout: (volumes (N, C, Z, H, W), seconds,
+    the largest sca_overflow)."""
+    import torch
+
+    from vln_ver_tpu_torch.ver_writer import volumes_from_bev
+    vols, overflow = [], 0
+    t0 = time.perf_counter()
+    for arrays in host_batches:
+        bev, ovf = bev_only(*(torch.from_numpy(a).to(device)
+                              for a in arrays))
+        overflow = max(overflow, int(ovf))
+        vols.append(volumes_from_bev(bev.float().cpu().numpy(), ver))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return np.concatenate(vols), time.perf_counter() - t0, overflow
+
+
+def counted(bev_only, host_batches, ver):
+    """One warm-up run, then one run on the card with the kernels' counts
+    set to 0 just before it; returns (volumes, seconds, overflow, forward
+    launches, nq of the last launch, peak device MiB)."""
+    import torch
+
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    drive(bev_only, host_batches, ver, "cuda")
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.launches = KERNEL_BWD.launches = 0
+    KERNEL.last_nq = None
+    vols, secs, ovf = drive(bev_only, host_batches, ver, "cuda")
+    if KERNEL_BWD.launches:
+        fail(f"an inference path launched the backward kernel "
+             f"{KERNEL_BWD.launches} times")
+    return (vols, secs, ovf, KERNEL.launches, KERNEL.last_nq,
+            torch.cuda.max_memory_allocated() / 2 ** 20)
+
+
+def batches_of(*arrays):
+    return [tuple(a[b0:b0 + BATCH] for a in arrays)
+            for b0 in range(0, N_VIEWPOINTS, BATCH)]
+
+
+def sparse_lift(model, ver, feats, w2p, shift, dense_vols, dense_rate,
+                card):
+    """Phase 4b; returns its numbers for the kernels line."""
+    import torch
+
+    from vln_ver_tpu_torch.geometry import max_visible_queries
+    from vln_ver_tpu_torch.get_occ import make_bev_only
+    from vln_ver_tpu_torch.models import build_model
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL
+
+    need = max_visible_queries(w2p, shift, ver.bev_z, ver.bev_h, ver.bev_w,
+                               ver.pc_range)
+    print(f"sparse lift: max_visible_queries of the {N_VIEWPOINTS} "
+          f"viewpoints = {need} of {ver.bev_num} (capacity {SPARSE_K})")
+    if need > SPARSE_K:
+        fail(f"a camera sees {need} queries, more than the capacity "
+             f"{SPARSE_K}")
+    cap = dataclasses.replace(ver, sca_query_capacity=SPARSE_K)
+    sparse = build_model(cap, "cuda", seed=0)
+    sparse.load_state_dict(model.state_dict(), strict=True)
+    vols, secs, ovf, launches, nq, peak = counted(
+        make_bev_only(sparse), batches_of(feats, w2p, shift), ver)
+    n_batches = -(-N_VIEWPOINTS // BATCH)
+    if ovf:
+        fail(f"sparse lift sca_overflow={ovf}")
+    if launches != ver.encoder_layers * n_batches or nq != SPARSE_K:
+        fail(f"the sparse lift launched deform_attn_2d {launches} times, "
+             f"the last at nq={nq}; expected {ver.encoder_layers} x "
+             f"{n_batches} batches at nq={SPARSE_K}")
+    err, ok = close(torch.from_numpy(vols), torch.from_numpy(dense_vols),
+                    1e-5, 1e-5)
+    print(f"sparse lift volumes vs the dense lift's: max_abs_err={err:.3e} "
+          f"(rtol=1e-5, atol=1e-5) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the sparse lift's volumes disagree with the dense lift's")
+    weights_mib = sum(p.numel() * p.element_size()
+                      for p in sparse.parameters()) / 2 ** 20
+    print(f"sparse lift: {N_VIEWPOINTS} volumes in {secs:.4f}s = "
+          f"{N_VIEWPOINTS / secs:.2f} volumes/s at batch {BATCH} (dense "
+          f"{dense_rate:.2f} in phase 4), peak device memory {peak:.1f} "
+          f"MiB ({weights_mib:.1f} MiB of it the dense model's weights, "
+          f"kept for phase 6), deform launches {launches} at nq={nq} "
+          f"[{card}]")
+    # the kernel at the sparse lift's shape against the dense lift's
+    hw, heads, d, P = ver.feat_h * ver.feat_w, ver.num_heads, \
+        ver.head_dim, ver.sca_num_points
+    times = {}
+    with torch.inference_mode():
+        for n in (SPARSE_K, ver.bev_num):
+            v, loc, w = deform_inputs(BATCH * ver.num_cams, hw, heads, d, n,
+                                      P, torch.float32, 30, "cuda")
+            times[n] = (time_graph_ms(lambda: KERNEL(
+                v, ((ver.feat_h, ver.feat_w),), loc, w)),
+                *deform_bound(v, loc, w, (ver.feat_h, ver.feat_w)))
+    (ms_k, bound_k, by_k), (ms_d, _, _) = times[SPARSE_K], times[ver.bev_num]
+    print(f"deform_attn_2d B={BATCH} fp32 at nq={SPARSE_K}: {ms_k:.4f} ms "
+          f"(graph), bound {bound_k:.4f} ms ({by_k}), "
+          f"{100 * bound_k / ms_k:.1f}% of bound; at nq={ver.bev_num}: "
+          f"{ms_d:.4f} ms ({ms_d / ms_k:.2f}x) [{card}]")
+    return dict(launches_dump_sparse=launches,
+                volumes_per_s_sparse=N_VIEWPOINTS / secs,
+                ms_b4_nq256=ms_k, ms_b4_nq900=ms_d,
+                bound_ms_b4_nq256=bound_k)
+
+
+def int8_upload(model, cpu_model, ver, feats, w2p, shift, dense_vols, card):
+    """Phase 4c; returns its numbers for the kernels line."""
+    import torch
+
+    from vln_ver_tpu_torch.get_occ import make_bev_only
+    from vln_ver_tpu_torch.ver_writer import dequantize_int8, quantize_int8
+
+    batches = [(*quantize_int8(f), m, s)
+               for f, m, s in batches_of(feats, w2p, shift)]
+
+    def int8_path(bev_only):
+        def run(q, scale, m, s):
+            return bev_only(dequantize_int8(q, scale, ver.dtype), m, s)
+        return run
+
+    vols, secs, ovf, launches, nq, peak = counted(
+        int8_path(make_bev_only(model)), batches, ver)
+    if ovf or launches != ver.encoder_layers * len(batches):
+        fail(f"int8 path: overflow {ovf}, {launches} launches")
+    t0 = time.perf_counter()
+    cpu_vols, _, _ = drive(int8_path(make_bev_only(cpu_model)), batches,
+                           ver, "cpu")
+    cpu_s = time.perf_counter() - t0
+    err, ok = close(torch.from_numpy(vols), torch.from_numpy(cpu_vols),
+                    1e-4, 1e-4)
+    print(f"int8 upload volumes card vs CPU int8 run ({N_VIEWPOINTS} "
+          f"viewpoints): max_abs_err={err:.3e} (rtol=1e-4, atol=1e-4) "
+          f"{'ok' if ok else 'FAIL'}; the CPU took {cpu_s:.2f}s")
+    if not ok:
+        fail("the card's int8 volumes disagree with the CPU's")
+    dev_fp32 = float(np.abs(vols - dense_vols).max())
+    per_vol = sum(a[:1].nbytes for a in batches[0])
+    fp32_per_vol = feats[:1].nbytes + w2p[:1].nbytes + shift[:1].nbytes
+    print(f"int8 upload: {N_VIEWPOINTS} volumes in {secs:.4f}s = "
+          f"{N_VIEWPOINTS / secs:.2f} volumes/s at batch {BATCH}, peak "
+          f"device memory {peak:.1f} MiB, deform launches {launches}; "
+          f"largest deviation from the fp32 volumes {dev_fp32:.3e} (of "
+          f"|v| <= {float(np.abs(dense_vols).max()):.3f}); upload "
+          f"{per_vol} B a volume (fp32 features: {fp32_per_vol} B) [{card}]")
+    return dict(launches_dump_int8=launches,
+                volumes_per_s_int8=N_VIEWPOINTS / secs,
+                upload_bytes_per_volume_int8=per_vol,
+                int8_max_dev_from_fp32=dev_fp32)
+
+
+def image_path(model, ver, w2p, shift, card):
+    """Phase 4d; returns its numbers for the kernels line."""
+    import torch
+
+    from vln_ver_tpu_torch.get_occ import make_bev_only
+    from vln_ver_tpu_torch.models.vit import vit_feature_frontend, vit_for_ver
+
+    def vit_on(device):
+        gen = torch.Generator().manual_seed(1)
+        return vit_for_ver(ver, VIT_PATCH, VIT_LAYERS, VIT_HEADS).init_weights(
+            gen).to(device).eval()
+
+    vit = vit_on("cuda")
+    size = vit.image_size
+    images = np.random.default_rng(4).integers(
+        0, 256, (N_VIEWPOINTS, ver.num_cams, size, size, 3)).astype(np.uint8)
+    batches = batches_of(images, w2p, shift)
+    vols, secs, ovf, launches, nq, peak = counted(
+        make_bev_only(model, vit), batches, ver)
+    if ovf or launches != ver.encoder_layers * len(batches) \
+            or nq != ver.bev_num:
+        fail(f"image path: overflow {ovf}, {launches} launches, the last "
+             f"at nq={nq}")
+    # two stages on the card: the ViT's features to the host, then the
+    # feature path
+    with torch.inference_mode():
+        feats = np.concatenate([vit_feature_frontend(
+            vit, torch.from_numpy(im).cuda()).cpu().numpy()
+            for im, _, _ in batches])
+    two, _, _ = drive(make_bev_only(model), batches_of(feats, w2p, shift),
+                      ver, "cuda")
+    err, ok = close(torch.from_numpy(vols), torch.from_numpy(two), 1e-5,
+                    1e-5)
+    print(f"fused image path vs two stages on the card (ViT, then the "
+          f"feature path): max_abs_err={err:.3e} (rtol=1e-5, atol=1e-5) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("the fused image path disagrees with its two stages")
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        cpu_feats = vit_feature_frontend(vit_on("cpu"),
+                                         torch.from_numpy(images[:1]))
+    cpu_s = time.perf_counter() - t0
+    err, ok = close(torch.from_numpy(feats[:1]), cpu_feats, 1e-4, 1e-4)
+    print(f"ViT-B/16 features card vs CPU (one viewpoint, {ver.num_cams} "
+          f"views): max_abs_err={err:.3e} (rtol=1e-4, atol=1e-4) "
+          f"{'ok' if ok else 'FAIL'}; the CPU took {cpu_s:.2f}s")
+    if not ok:
+        fail("the card's ViT features disagree with the CPU's")
+    x = torch.from_numpy(images[:BATCH]).cuda()
+    with torch.inference_mode():
+        vit_ms = time_ms(lambda: vit_feature_frontend(vit, x), iters=10,
+                         warmup=2)
+    per_vol = sum(a[:1].nbytes for a in batches[0])
+    print(f"image path: {N_VIEWPOINTS} volumes in {secs:.4f}s = "
+          f"{N_VIEWPOINTS / secs:.2f} volumes/s at batch {BATCH} "
+          f"(ViT-B/{VIT_PATCH}, {VIT_LAYERS} layers, {VIT_HEADS} heads, "
+          f"{size} x {size}), ViT {vit_ms:.3f} ms of device time per batch "
+          f"(CUDA events), peak device memory {peak:.1f} MiB, upload "
+          f"{per_vol} B a volume, deform launches {launches} [{card}]")
+    return dict(launches_images=launches,
+                volumes_per_s_images=N_VIEWPOINTS / secs,
+                vit_ms_per_batch=vit_ms,
+                upload_bytes_per_volume_images=per_vol)
 
 
 def main() -> None:
@@ -795,6 +1157,10 @@ def main() -> None:
         ("unaligned rows d=3 fp32", 4, 14, 14, 3, 57, f32, (-0.1, 1.1)),
         ("unaligned rows d=3 bf16", 4, 14, 14, 3, 57, bf16, (-0.1, 1.1)),
         ("far-out +-30 fp32", 6, 14, 14, 96, 900, f32, (-30.0, 30.0)),
+        ("sparse nq=256 fp32", 6 * BATCH, 14, 14, 96, SPARSE_K, f32,
+         (-0.1, 1.1)),
+        ("sparse nq=256 bf16", 6 * BATCH, 14, 14, 96, SPARSE_K, bf16,
+         (-0.1, 1.1)),
     ]
     tolerance = {f32: (1e-4, 1e-5), bf16: (1e-2, 1e-2)}
     main_err = None
@@ -930,6 +1296,15 @@ def main() -> None:
     if not ok:
         fail("card bev_embed disagrees with the CPU run")
     breakdown(run_main_path, bev_only, feats, w2p, shift, ver, card)
+    dense_vols = np.concatenate(vols)
+
+    # -- phase 4b-4d: the sparse lift, the int8 upload, the image path ----
+    extra = sparse_lift(model, ver, feats, w2p, shift, dense_vols,
+                        N_VIEWPOINTS / main_s, card)
+    extra.update(int8_upload(model, cpu_model, ver, feats, w2p, shift,
+                             dense_vols, card))
+    del cpu_model
+    extra.update(image_path(model, ver, w2p, shift, card))
 
     # -- phase 5: kernel timing ------------------------------------------
     H = W = ver.feat_h
@@ -1020,15 +1395,17 @@ def main() -> None:
     del model
 
     # -- phase 7: training -------------------------------------------------
-    launches_train, bwd_launches_train = training(ver, samples, card)
+    launches_train, bwd_launches_train, train_extra = training(
+        ver, samples, card)
 
     ms, eager_ms, plain_ms, bound_ms, bound_by, floor_ms = timing[
         "B=1 float32"]
     ms4, eager_ms4, plain_ms4, bound_ms4, _, floor_ms4 = timing[
         "B=4 float32"]
     # "launches" in both entries is the count over the timed train steps
-    # (phase 7, the training path); "launches_dump" and "launches_eval" are
-    # the counts of phases 4 and 6, each read from that run alone
+    # (phase 7, the training path); "launches_dump", "launches_eval" and
+    # the rest are the counts of phases 4, 4b-4d, 6 and 7's remat and
+    # capacity steps, each read from that run alone
     print(json.dumps({"kernels": [{
         "name": "deform_attn_2d",
         "route": "cuda",
@@ -1054,6 +1431,9 @@ def main() -> None:
         "smem_floor_ms_b4": floor_ms4,
         "ms_bf16": timing["B=1 bfloat16"][0],
         "ms_bf16_b4": timing["B=4 bfloat16"][0],
+        **extra,
+        "launches_train_remat": train_extra["fwd_remat"],
+        "launches_train_capacity": train_extra["fwd_capacity"],
         "card": card,
     }, {
         "name": "deform_attn_2d_backward",
@@ -1084,6 +1464,11 @@ def main() -> None:
         "smem_floor_ms_b4": bwd_timing["B=4 float32"][5],
         "ms_bf16": bwd_timing["B=1 bfloat16"][0],
         "ms_bf16_b4": bwd_timing["B=4 bfloat16"][0],
+        "launches_dump_sparse": 0,
+        "launches_dump_int8": 0,
+        "launches_images": 0,
+        "launches_train_remat": train_extra["bwd_remat"],
+        "launches_train_capacity": train_extra["bwd_capacity"],
         "card": card,
     }]}))
     print(json.dumps({"ok": True, "device": {

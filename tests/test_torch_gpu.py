@@ -411,3 +411,112 @@ def test_train_step_on_card_matches_cpu(cuda, monkeypatch):
     for n, g in gc.items():
         diff = float(torch.linalg.vector_norm(gg[n] - g))
         assert diff <= 1e-3 * float(torch.linalg.vector_norm(g)) + 1e-6, n
+
+
+def _card_step(cfg, batch, device, monkeypatch):
+    """One ``make_train_step`` of a seed-0 model on ``device``: (the matched
+    query of every GT slot in every match the step made, the losses, every
+    parameter's gradient, the forward and backward kernel launches)."""
+    from vln_ver_tpu_torch.train import (TrainConfig, create_train_state,
+                                         make_train_step, objective,
+                                         to_device)
+    from vln_ver_tpu_torch.utils.params import grads_by_name
+    matches, inner = [], objective._match
+
+    def record(*args, **kw):
+        out = inner(*args, **kw)
+        matches.append(out.cpu())
+        return out
+
+    monkeypatch.setattr(objective, "_match", record)
+    model = build_model(cfg, device)
+    tc = TrainConfig(warmup_steps=1, total_steps=10, matcher="host")
+    state = create_train_state(model, tc)
+    before = (KERNEL.launches, KERNEL_BWD.launches)
+    m = make_train_step(cfg, tc)(state, to_device(batch, device), seed=0)
+    launches = (KERNEL.launches - before[0], KERNEL_BWD.launches - before[1])
+    monkeypatch.setattr(objective, "_match", inner)
+    return (torch.cat([x.flatten() for x in matches]),
+            {k: float(v) for k, v in m.items()},
+            {n: g.cpu() for n, g in grads_by_name(model).items()}, launches)
+
+
+def _train_batch(cfg, n=2):
+    from vln_ver_tpu_torch.data import synthetic_samples
+    from vln_ver_tpu_torch.data.mp3d import collate
+    return collate(synthetic_samples(
+        1, n, num_cams=cfg.num_cams, feat_hw=cfg.feat_h,
+        feat_dim=cfg.in_channels,
+        occ_dims=(cfg.occ_zdim, cfg.occ_ydim, cfg.occ_xdim)))
+
+
+def test_remat_train_step_on_card_matches_plain_step(cuda, monkeypatch):
+    """``remat_encoder``: the forward kernel runs again in the backward, on
+    autograd's worker thread, where it encodes its tensor map with no
+    context current until its first runtime call.  The step matches the
+    one without remat on the same weights and batch, dropout on (the
+    replay redraws its masks): the same matched queries, the losses within
+    rtol 1e-5, each gradient within 1e-4 of its L2 norm; the forward
+    kernel launches twice per encoder layer."""
+    import dataclasses
+    cfg = dataclasses.replace(TINY, num_classes=17, occupancy_classes=16)
+    batch = _train_batch(cfg)
+    plain = _card_step(cfg, batch, cuda, monkeypatch)
+    remat = _card_step(dataclasses.replace(cfg, remat_encoder=True), batch,
+                       cuda, monkeypatch)
+    assert plain[3] == (cfg.encoder_layers, cfg.encoder_layers)
+    assert remat[3] == (2 * cfg.encoder_layers, cfg.encoder_layers)
+    assert torch.equal(plain[0], remat[0])
+    for k in plain[1]:
+        assert remat[1][k] == pytest.approx(plain[1][k], rel=1e-5,
+                                            abs=1e-7), k
+    for n, g in plain[2].items():
+        diff = float(torch.linalg.vector_norm(remat[2][n] - g))
+        assert diff <= 1e-4 * float(torch.linalg.vector_norm(g)) + 1e-7, n
+
+
+def test_sparse_lift_on_card_matches_dense_and_cpu(cuda):
+    """The capacity path on the card: the kernel at nq = K on (B * cams)
+    rows, the gather and the scatter; equal to the card's dense lift and
+    to the CPU's sparse lift within 1e-4, with a zero overflow."""
+    import dataclasses
+
+    from vln_ver_tpu_torch.geometry import max_visible_queries
+    feats, w2p, shift = _viewpoints(2)
+    need = max_visible_queries(w2p, shift, TINY.bev_z, TINY.bev_h,
+                               TINY.bev_w, TINY.pc_range)
+    cfg = dataclasses.replace(TINY, sca_query_capacity=need)
+    x = [torch.from_numpy(a) for a in (feats, w2p, shift)]
+    with torch.inference_mode():
+        dense = build_model(TINY, cuda)(*(t.to(cuda) for t in x),
+                                        only_bev=True)
+        before = KERNEL.launches
+        got = build_model(cfg, cuda)(*(t.to(cuda) for t in x),
+                                     only_bev=True)
+        torch.cuda.synchronize()
+        launches = KERNEL.launches - before
+        cpu = build_model(cfg, "cpu")(*x, only_bev=True)
+    assert launches == cfg.encoder_layers and KERNEL.last_nq == need
+    assert int(got["sca_overflow"]) == 0
+    torch.testing.assert_close(got["bev_embed"], dense["bev_embed"],
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(got["bev_embed"].cpu(), cpu["bev_embed"],
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_vit_frontend_on_card_matches_cpu(cuda):
+    """The image path's ViT frontend in fp32 on the card (cuDNN's patch
+    convolution and cuBLAS's GEMMs held to true fp32) against the CPU,
+    through a resize, within 1e-4."""
+    from vln_ver_tpu_torch.models.vit import ViT, vit_feature_frontend
+    imgs = torch.from_numpy(np.random.default_rng(0).integers(
+        0, 256, (2, 3, 40, 48, 3)).astype(np.uint8))
+    out = {}
+    for device in ("cpu", cuda):
+        vit = ViT(32, 8, 64, 2, 4, 256).init_weights(
+            torch.Generator().manual_seed(0)).to(device).eval()
+        with torch.inference_mode():
+            out[str(device)] = vit_feature_frontend(vit, imgs.to(device))
+    assert out[str(cuda)].shape == (2, 3, 4, 4, 64)
+    torch.testing.assert_close(out[str(cuda)].cpu(), out["cpu"], rtol=1e-4,
+                               atol=1e-4)

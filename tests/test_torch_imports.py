@@ -15,6 +15,10 @@ import pytest
 REPO = Path(__file__).resolve().parent.parent
 FILES = sorted((REPO / "vln_ver_tpu_torch").rglob("*.py")) + [
     REPO / "chip_smoke.py"]
+# the modules of the VER generation product path that arrived with the
+# sparse lift, the uploads and the image frontend
+PRODUCT_PATH = ("models/vit.py", "convert/vit.py", "check_query_capacity.py",
+                "extract_vit_features.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -37,6 +41,12 @@ def test_no_jax_import(path):
     assert not bad, f"{path.relative_to(REPO)} imports {bad}"
 
 
+def test_product_path_modules_are_checked():
+    names = {str(p.relative_to(REPO / "vln_ver_tpu_torch"))
+             for p in FILES if p.is_relative_to(REPO / "vln_ver_tpu_torch")}
+    assert set(PRODUCT_PATH) <= names
+
+
 def test_forbidden_names():
     assert _forbidden("vln_ver_tpu") and _forbidden("vln_ver_tpu.geometry")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen")
@@ -51,7 +61,10 @@ def test_package_imports_without_h5py():
             " vln_ver_tpu_torch.test, vln_ver_tpu_torch.evaluation.runner,"
             " vln_ver_tpu_torch.train.cli, vln_ver_tpu_torch.losses,"
             " vln_ver_tpu_torch.matching, vln_ver_tpu_torch.utils.checkpoint,"
-            " vln_ver_tpu_torch.utils.params; "
+            " vln_ver_tpu_torch.utils.params, vln_ver_tpu_torch.models.vit,"
+            " vln_ver_tpu_torch.convert.vit,"
+            " vln_ver_tpu_torch.check_query_capacity,"
+            " vln_ver_tpu_torch.extract_vit_features; "
             "from vln_ver_tpu_torch.data import synthetic_samples; "
             "synthetic_samples(1, 1, num_cams=1, feat_hw=2, feat_dim=4, "
             "occ_dims=(2, 4, 4)); print('ok')")

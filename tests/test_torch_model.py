@@ -184,9 +184,33 @@ def test_compute_dtype_option_maps_to_torch_bfloat16():
     assert build_ver_config(cfg).dtype == torch.bfloat16
 
 
-def test_capacity_lift_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        VoxelFormer(dataclasses.replace(TCFG, sca_query_capacity=16))
+def test_capacity_lift_builds_and_runs(weights):
+    """``sca_query_capacity`` builds the same parameter tree as the dense
+    lift, and with a capacity that covers every camera (its geometry's
+    ``max_visible_queries``) its forward is the dense one's, with a zero
+    overflow on the device; one below it reports the drop."""
+    from vln_ver_tpu_torch.geometry import max_visible_queries
+    _, dense, _ = weights
+    feats, w2p, shift = _inputs(2, seed=6)
+    need = max_visible_queries(w2p, shift, TCFG.bev_z, TCFG.bev_h,
+                               TCFG.bev_w, TCFG.pc_range)
+    assert 0 < need < TCFG.bev_num
+    x = [torch.from_numpy(a) for a in (feats, w2p, shift)]
+    with torch.inference_mode():
+        ref = dense(*x)
+        for cap, overflow in ((need, 0), (need // 2, None)):
+            model = VoxelFormer(dataclasses.replace(
+                TCFG, sca_query_capacity=cap)).eval()
+            model.load_state_dict(dense.state_dict(), strict=True)
+            got = model(*x)
+            assert isinstance(got["sca_overflow"], torch.Tensor)
+            if overflow is None:
+                assert int(got["sca_overflow"]) > 0
+                continue
+            assert int(got["sca_overflow"]) == 0
+            for k in ("bev_embed", "all_cls_scores", "occupancy_preds"):
+                np.testing.assert_allclose(got[k].numpy(), ref[k].numpy(),
+                                           rtol=2e-5, atol=2e-5, err_msg=k)
 
 
 def test_cuda_device_without_cuda_raises(monkeypatch):

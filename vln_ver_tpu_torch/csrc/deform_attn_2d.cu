@@ -337,40 +337,52 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+// Launches the kernel for prm; `bs` and `bf16` describe `prm.value` to the
+// tensor-map encoder.
 template <typename T, int KC>
-cudaError_t launch(const CUtensorMap& vmap, const Params& prm, int ctas,
+cudaError_t launch(const Params& prm, int bs, int bf16, int ctas,
                    int smem_bytes, cudaStream_t stream) {
-  const cudaError_t err = cudaFuncSetAttribute(
+  // A runtime call first: it makes the device's context current on this
+  // thread (under remat_encoder the forward replays on autograd's worker
+  // thread), which cuTensorMapEncodeTiled needs and does not make
+  // itself.
+  cudaError_t err = cudaFuncSetAttribute(
       deform_attn_2d_kernel<T, KC>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (err != cudaSuccess) return err;
+  alignas(64) CUtensorMap vmap = {};
+  if (prm.tma) {
+    err = encode_value_map(&vmap, prm.value, bf16, bs, prm.H, prm.W,
+                           prm.heads, prm.d);
+    if (err != cudaSuccess) return err;
+  }
   deform_attn_2d_kernel<T, KC>
       <<<ctas, kThreads, smem_bytes, stream>>>(vmap, prm);
   return cudaGetLastError();
 }
 
-cudaError_t launch_f32(const CUtensorMap& m, const Params& prm, int kc,
-                       int ctas, int smem, cudaStream_t st) {
+cudaError_t launch_f32(const Params& prm, int bs, int kc, int ctas, int smem,
+                       cudaStream_t st) {
   switch (kc) {
-    case 1: return launch<float, 1>(m, prm, ctas, smem, st);
-    case 2: return launch<float, 2>(m, prm, ctas, smem, st);
-    case 3: return launch<float, 3>(m, prm, ctas, smem, st);
-    case 4: return launch<float, 4>(m, prm, ctas, smem, st);
-    case 5: return launch<float, 5>(m, prm, ctas, smem, st);
-    case 6: return launch<float, 6>(m, prm, ctas, smem, st);
-    case 7: return launch<float, 7>(m, prm, ctas, smem, st);
-    case 8: return launch<float, 8>(m, prm, ctas, smem, st);
+    case 1: return launch<float, 1>(prm, bs, 0, ctas, smem, st);
+    case 2: return launch<float, 2>(prm, bs, 0, ctas, smem, st);
+    case 3: return launch<float, 3>(prm, bs, 0, ctas, smem, st);
+    case 4: return launch<float, 4>(prm, bs, 0, ctas, smem, st);
+    case 5: return launch<float, 5>(prm, bs, 0, ctas, smem, st);
+    case 6: return launch<float, 6>(prm, bs, 0, ctas, smem, st);
+    case 7: return launch<float, 7>(prm, bs, 0, ctas, smem, st);
+    case 8: return launch<float, 8>(prm, bs, 0, ctas, smem, st);
   }
   return cudaErrorInvalidValue;
 }
 
-cudaError_t launch_bf16(const CUtensorMap& m, const Params& prm, int kc,
-                        int ctas, int smem, cudaStream_t st) {
+cudaError_t launch_bf16(const Params& prm, int bs, int kc, int ctas, int smem,
+                        cudaStream_t st) {
   switch (kc) {
-    case 1: return launch<__nv_bfloat16, 1>(m, prm, ctas, smem, st);
-    case 2: return launch<__nv_bfloat16, 2>(m, prm, ctas, smem, st);
-    case 3: return launch<__nv_bfloat16, 3>(m, prm, ctas, smem, st);
-    case 4: return launch<__nv_bfloat16, 4>(m, prm, ctas, smem, st);
+    case 1: return launch<__nv_bfloat16, 1>(prm, bs, 1, ctas, smem, st);
+    case 2: return launch<__nv_bfloat16, 2>(prm, bs, 1, ctas, smem, st);
+    case 3: return launch<__nv_bfloat16, 3>(prm, bs, 1, ctas, smem, st);
+    case 4: return launch<__nv_bfloat16, 4>(prm, bs, 1, ctas, smem, st);
   }
   return cudaErrorInvalidValue;
 }
@@ -430,15 +442,9 @@ extern "C" int deform_attn_2d_forward(const void* value, const void* loc,
   prm.stage_bytes = stage_bytes;
   // the TMA unit takes 16-byte rows at 16-byte addresses, boxes <= 256
   prm.tma = tma_takes(value, d, static_cast<int>(elt), row_stride, H, W);
-  alignas(64) CUtensorMap vmap = {};
-  if (prm.tma) {
-    const cudaError_t err =
-        encode_value_map(&vmap, value, value_is_bf16, bs, H, W, heads, d);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      value_is_bf16 ? launch_bf16(vmap, prm, kc, ctas, smem_bytes, s)
-                    : launch_f32(vmap, prm, kc, ctas, smem_bytes, s);
+      value_is_bf16 ? launch_bf16(prm, bs, kc, ctas, smem_bytes, s)
+                    : launch_f32(prm, bs, kc, ctas, smem_bytes, s);
   return static_cast<int>(err);
 }

@@ -1,10 +1,10 @@
-"""MP3D viewpoint reader (PyTorch port of ``vln_ver_tpu/data/mp3d.py``,
-feature path).
+"""MP3D viewpoint reader (PyTorch port of ``vln_ver_tpu/data/mp3d.py``).
 
-Reads, per viewpoint, the ViT features, the camera matrices, the origin
-shift and the token, and the ground truth where the annotation has it:
-gravity boxes with labels and validity, the room layout, and the dense
-occupancy labels with their visibility mask.
+Reads, per viewpoint, the ViT features (or, for the fused image path, the
+raw uint8 views), the camera matrices, the origin shift and the token,
+and the ground truth where the annotation has it: gravity boxes with
+labels and validity, the room layout, and the dense occupancy labels with
+their visibility mask.
 
 Files under ``data_root`` (the reference's layout):
   annotation pkl: one dict per viewpoint with ``token = '{scan}_{vp}'``,
@@ -14,6 +14,8 @@ Files under ``data_root`` (the reference's layout):
     indices of unobserved voxels);
   new_vit_base_patch16_197_imagenet.hdf5: '{scan}_{vp}_i1_{deg}' ->
     (1, 197, 768), the CLS token is stripped (voxelformer.py:322-323);
+  panorama_images.hdf5 (``from_images``): '{scan}_{vp}_i1_{deg}' ->
+    (H, W, 3) uint8;
   world2pixel/{scan}.json: '{vp}_i1_{deg}' -> 4x4 row-major list;
   scanvp2cord.pkl: '{scan}_{vp}' -> origin shift.
 """
@@ -83,7 +85,8 @@ def occupancy_ground_truth(sparse: np.ndarray, invalid: Optional[np.ndarray],
 class MP3DDataset:
     def __init__(self, ann_file: str, data_root: str, num_cams: int = 6,
                  feat_hw: int = 14, voxel_num: int = 35 * 120 * 120,
-                 occupancy_classes: int = 16, test_mode: bool = False):
+                 occupancy_classes: int = 16, test_mode: bool = False,
+                 from_images: bool = False, image_file: Optional[str] = None):
         with open(ann_file, "rb") as f:
             self.data_infos: List[Dict] = pickle.load(f)
         self.data_root = data_root
@@ -96,6 +99,12 @@ class MP3DDataset:
         self._cord_cache: Optional[Dict] = None
         self._h5 = None
         self._lock = threading.Lock()
+        # the fused image path: samples carry the raw uint8 views under
+        # "images" in place of "features"
+        self.from_images = from_images
+        self.image_file = image_file or os.path.join(
+            data_root, "panorama_images.hdf5")
+        self._img_h5 = None
 
     def __len__(self) -> int:
         return len(self.data_infos)
@@ -110,6 +119,18 @@ class MP3DDataset:
                     "new_vit_base_patch16_197_imagenet.hdf5"), "r")
             ft = self._h5[key][:, 1:, :].astype(np.float32)
         return ft.reshape(self.feat_hw, self.feat_hw, -1)
+
+    def _get_image(self, key: str) -> np.ndarray:
+        # no image cache either: a dump reads each view once
+        with self._lock:
+            if self._img_h5 is None:
+                import h5py
+                self._img_h5 = h5py.File(self.image_file, "r")
+            img = np.asarray(self._img_h5[key], np.uint8)
+        if img.ndim != 3 or img.shape[2] != 3:
+            raise ValueError(f"image {key} of {self.image_file} has shape "
+                             f"{img.shape}, want (H, W, 3)")
+        return img
 
     def _get_world2pixel(self, scan: str, vp: str) -> np.ndarray:
         if scan not in self._cam_cache:
@@ -130,17 +151,25 @@ class MP3DDataset:
         return np.asarray(self._cord_cache[f"{scan}_{vp}"],
                           dtype=np.float32)[:3]
 
+    def cameras(self, index: int):
+        """(world2pixel (cams, 4, 4), origin_shift (3,)) of one viewpoint,
+        without reading its features or images."""
+        scan, vp = self.data_infos[index]["token"].split("_")
+        return (self._get_world2pixel(scan, vp),
+                self._get_origin_shift(scan, vp))
+
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         info = self.data_infos[index]
         token = info["token"]
         scan, vp = token.split("_")
         keys = [f"{scan}_{vp}_i1_{deg}" for deg in range(self.num_cams)]
-        sample = {
-            "features": np.stack([self._get_feature(k) for k in keys]),
-            "world2pixel": self._get_world2pixel(scan, vp),
-            "origin_shift": self._get_origin_shift(scan, vp),
-            "token": token,
-        }
+        w2p, shift = self.cameras(index)
+        sample = {"world2pixel": w2p, "origin_shift": shift, "token": token}
+        if self.from_images:
+            sample["images"] = np.stack([self._get_image(k) for k in keys])
+        else:
+            sample["features"] = np.stack([self._get_feature(k)
+                                           for k in keys])
         sample.update(ground_truth(info, self.test_mode))
         if "occ_gt_path" in info:
             invalid = (np.load(info["occ_invalid_path"])
@@ -151,9 +180,11 @@ class MP3DDataset:
         return sample
 
     def close(self) -> None:
-        if self._h5 is not None:
-            self._h5.close()
-            self._h5 = None
+        for name in ("_h5", "_img_h5"):
+            f = getattr(self, name)
+            if f is not None:
+                f.close()
+                setattr(self, name, None)
 
 
 def collate(samples: Sequence[Dict[str, np.ndarray]]) -> Dict:

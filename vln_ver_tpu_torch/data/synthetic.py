@@ -16,6 +16,7 @@ either package writes the same dataset.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import pickle
@@ -127,6 +128,14 @@ def _feature(seed: int, split: str, s: int, v: int, deg: int, feat_hw: int,
         (1, feat_hw * feat_hw + 1, feat_dim)).astype(np.float32)
 
 
+def _image(seed: int, split: str, s: int, v: int, deg: int,
+           image_hw) -> np.ndarray:
+    """(H, W, 3) uint8: one random panorama view, independent of the
+    features."""
+    return _key_rng(seed, split, s, v, deg, 1).integers(
+        0, 256, (*image_hw, 3)).astype(np.uint8)
+
+
 def _world2pixel(num_cams: int, deg: int, pos) -> np.ndarray:
     return make_pinhole_world2pixel(70.0, deg * (360.0 / num_cams), pos)
 
@@ -171,9 +180,16 @@ def make_synthetic_dataset(root: str,
                            occ_dims=OCC_DIMS,
                            pc_range=PC_RANGE,
                            seed: int = 0,
-                           split: str = "trainval") -> str:
+                           split: str = "trainval",
+                           image_hw=None) -> str:
     """Write features, cameras, origin shifts, the annotation pkl and the
-    occupancy npys under ``root``; returns the annotation path."""
+    occupancy npys under ``root``; returns the annotation path.
+
+    With ``image_hw`` (H, W) it also writes random uint8 views to
+    ``panorama_images.hdf5`` under the features' keys (the fused image
+    path's input).  Every artifact has its own keyed stream, so a second
+    call over a populated root rewrites the same bytes and adds only the
+    missing HDF5 keys."""
     import h5py
 
     os.makedirs(os.path.join(root, "world2pixel"), exist_ok=True)
@@ -181,8 +197,11 @@ def make_synthetic_dataset(root: str,
     infos = []
     cords = {}
     feat_path = os.path.join(root, "new_vit_base_patch16_197_imagenet.hdf5")
+    img_path = os.path.join(root, "panorama_images.hdf5")
     mode = "a" if os.path.exists(feat_path) else "w"
-    with h5py.File(feat_path, mode) as h5:
+    with h5py.File(feat_path, mode) as h5, contextlib.ExitStack() as files:
+        img_h5 = None if image_hw is None else files.enter_context(
+            h5py.File(img_path, "a" if os.path.exists(img_path) else "w"))
         for s in range(num_scans):
             scan = _scan_name(split, s)
             cam_json = {}
@@ -198,6 +217,9 @@ def make_synthetic_dataset(root: str,
                     if fkey not in h5:
                         h5.create_dataset(fkey, data=_feature(
                             seed, split, s, v, deg, feat_hw, feat_dim))
+                    if img_h5 is not None and fkey not in img_h5:
+                        img_h5.create_dataset(fkey, data=_image(
+                            seed, split, s, v, deg, image_hw))
                 info["occ_gt_path"] = os.path.join(root, "occ",
                                                    f"{token}.npy")
                 np.save(info["occ_gt_path"], sparse)

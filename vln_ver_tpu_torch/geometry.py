@@ -84,6 +84,48 @@ def project_reference_points(ref_xyz: torch.Tensor,
     return xy, mask
 
 
+def max_visible_queries(world2pixel: np.ndarray,
+                        origin_shift: np.ndarray,
+                        bev_z: int = 4, bev_h: int = 15, bev_w: int = 15,
+                        pc_range=PC_RANGE,
+                        image_wh=IMAGE_WH) -> int:
+    """Largest per-camera visible voxel-query count over a batch: the
+    least safe ``VERConfig.sca_query_capacity``.
+
+    Pure numpy, on the host (dataset validation before the capacity-bounded
+    sparse lift is turned on).  ``world2pixel`` is (..., cam, 4, 4) and
+    ``origin_shift`` (..., 3) with matching leading dims.  It repeats
+    :func:`project_reference_points`'s visibility test in float64 on the
+    float32 world points, with the bounds dilated by 1e-4, so a projection
+    within rounding of an image edge, which the device may count visible,
+    is counted here too: the bound never under-counts."""
+    w2p = np.asarray(world2pixel, np.float32)
+    shift = np.asarray(origin_shift, np.float32)
+
+    def centres(n):
+        return (np.arange(n, dtype=np.float32) + np.float32(0.5)) \
+            / np.float32(n)
+    z, y, x = np.meshgrid(centres(bev_z), centres(bev_h), centres(bev_w),
+                          indexing="ij")
+    ref = np.stack([x, y, z], axis=-1).reshape(-1, 3)
+    pc = np.asarray(pc_range, np.float32)
+    world = ref * (pc[3:6] - pc[0:3]) + pc[0:3]        # (nq, 3)
+    world = world[None] + shift.reshape(-1, 1, 3)      # (B, nq, 3)
+    homo = np.concatenate([world, np.ones_like(world[..., :1])], -1)
+    cam = np.einsum("xcij,xqj->xcqi",
+                    w2p.reshape(-1, *w2p.shape[-3:]).astype(np.float64),
+                    homo.astype(np.float64))
+    depth = cam[..., 2]
+    eps = 1e-5
+    tol = 1e-4   # the fp32-rounding dilation of the visibility boundary
+    xy = cam[..., 0:2] / np.maximum(depth, eps)[..., None]
+    xy = xy / np.asarray(image_wh, np.float64)
+    vis = ((depth > eps * (1.0 - tol))
+           & (xy[..., 0] > -tol) & (xy[..., 0] < 1.0 + tol)
+           & (xy[..., 1] > -tol) & (xy[..., 1] < 1.0 + tol))
+    return int(vis.sum(-1).max())
+
+
 def make_pinhole_world2pixel(fov_deg: float,
                              yaw_deg: float,
                              position,

@@ -6,7 +6,8 @@
 * :class:`SpatialCrossAttention` runs the attention dense over all queries
   for every camera and masks invisible contributions before the sum: the
   same result as the reference's per-camera rebatch and scatter-add, with
-  static shapes.
+  static shapes.  With a query capacity K it runs the attention on each
+  camera's first K visible queries only (the sparse lift).
 * :class:`VoxelDeformableAttention3D` is the decoder's cross-attention,
   the reference VoxelCustomMSDeformableAttention (voxel_decoder.py:
   135-358): 3D offsets, trilinear sampling over the (z, h, w) voxel grid,
@@ -95,10 +96,15 @@ class CamDeformableAttention(nn.Module):
 
     def forward(self, query: torch.Tensor, value: torch.Tensor,
                 reference_points: torch.Tensor,
-                spatial_shapes: Sequence[Tuple[int, int]]) -> torch.Tensor:
+                spatial_shapes: Sequence[Tuple[int, int]],
+                gather_idx: torch.Tensor = None) -> torch.Tensor:
         """query (B, nq, C); value (B, num_cam, nv, C);
-        reference_points (B, num_cam, nq, num_Z_anchors, 2) in [0, 1].
-        Returns (B, num_cam, nq, C) in the compute dtype."""
+        reference_points (B, num_cam, nq', num_Z_anchors, 2) in [0, 1].
+        Without ``gather_idx`` nq' = nq and every camera attends from every
+        query.  With ``gather_idx`` (B, num_cam, K) int64, camera c of
+        sample b attends from queries ``gather_idx[b, c]`` only, nq' = K,
+        and ``reference_points`` holds those queries' points.
+        Returns (B, num_cam, nq', C) in the compute dtype."""
         bsz, nq, _ = query.shape
         num_cam, nv = value.shape[1], value.shape[2]
         heads, levels, points = (self.num_heads, self.num_levels,
@@ -107,13 +113,30 @@ class CamDeformableAttention(nn.Module):
 
         value = self.value_proj(value).reshape(bsz * num_cam, nv, heads, hd)
 
-        offsets = self.sampling_offsets(query.float()).reshape(
-            bsz, 1, nq, heads, levels, points, 2)
+        offsets = self.sampling_offsets(query.float())
         attn = self.attention_weights(query.float()).reshape(
             bsz, nq, heads, levels * points).softmax(dim=-1)
-        attn = attn.reshape(bsz, 1, nq, heads, levels, points).expand(
-            bsz, num_cam, nq, heads, levels, points).reshape(
-                bsz * num_cam, nq, heads, levels, points)
+        if gather_idx is not None:
+            # the K rows of each camera; within one (sample, camera) the
+            # indices are distinct, so the gather's backward adds into no
+            # element twice
+            nq_eff = gather_idx.shape[-1]
+
+            def gather(x):
+                x = x.reshape(bsz, 1, nq, -1).expand(bsz, num_cam, nq, -1)
+                idx = gather_idx[..., None].expand(-1, -1, -1, x.shape[-1])
+                return torch.gather(x, 2, idx)
+
+            offsets = gather(offsets).reshape(bsz, num_cam, nq_eff, heads,
+                                              levels, points, 2)
+            attn = gather(attn).reshape(bsz * num_cam, nq_eff, heads, levels,
+                                        points)
+        else:
+            nq_eff = nq
+            offsets = offsets.reshape(bsz, 1, nq, heads, levels, points, 2)
+            attn = attn.reshape(bsz, 1, nq, heads, levels, points).expand(
+                bsz, num_cam, nq, heads, levels, points).reshape(
+                    bsz * num_cam, nq, heads, levels, points)
 
         # distribute the P sampling points across the query's Z anchors
         # (spatial_cross_attention.py:352-374); the normaliser is [w, h]
@@ -121,16 +144,18 @@ class CamDeformableAttention(nn.Module):
         normalizer = torch.tensor([[w, h] for (h, w) in spatial_shapes],
                                   dtype=torch.float32, device=query.device)
         offsets = offsets / normalizer[None, None, None, None, :, None, :]
-        offsets = offsets.reshape(bsz, 1, nq, heads, levels,
-                                  points // num_anchors, num_anchors, 2)
+        offsets = offsets.reshape(bsz, offsets.shape[1], nq_eff, heads,
+                                  levels, points // num_anchors, num_anchors,
+                                  2)
         ref = reference_points[:, :, :, None, None, None, :, :].float()
-        locations = (ref + offsets).reshape(bsz * num_cam, nq, heads,
+        locations = (ref + offsets).reshape(bsz * num_cam, nq_eff, heads,
                                             levels, points, 2)
 
         out = ms_deform_attn_2d_fused(value.contiguous(), spatial_shapes,
                                       locations.contiguous(),
                                       attn.contiguous())
-        return out.reshape(bsz, num_cam, nq, self.embed_dims).to(self.dtype)
+        return out.reshape(bsz, num_cam, nq_eff,
+                           self.embed_dims).to(self.dtype)
 
 
 class SpatialCrossAttention(nn.Module):
@@ -138,18 +163,23 @@ class SpatialCrossAttention(nn.Module):
     spatial_cross_attention.py:31-176): deformable attention from every
     query into every camera, invisible contributions masked away, the
     camera sum taken in fp32 and divided by the per-query hit count, then
-    ``output_proj``, dropout and the residual."""
+    ``output_proj``, dropout and the residual.
+
+    ``query_capacity`` K > 0 (and below nq) is the capacity-bounded sparse
+    lift (vln_ver_tpu/models/attention.py:238-258): each camera runs the
+    attention on K query slots, its visible queries in index order and
+    then pad rows, and the valid slots are scattered back before the
+    camera sum.  Equal to the dense path, term for term, whenever no
+    camera sees more than K queries; beyond K the highest-index visible
+    queries are dropped, which the transformer's ``sca_overflow``
+    reports."""
 
     def __init__(self, embed_dims: int = 768, num_heads: int = 8,
                  num_levels: int = 1, num_points: int = 8,
                  dtype: torch.dtype = torch.float32,
                  query_capacity: int = 0, dropout_rate: float = 0.1):
         super().__init__()
-        if query_capacity > 0:
-            raise NotImplementedError(
-                f"sca_query_capacity={query_capacity}: the capacity-bounded "
-                "sparse lift is not ported yet (ROADMAP Queue 1, capacity "
-                "lift); use the dense lift (sca_query_capacity=0)")
+        self.query_capacity = query_capacity
         self.dtype = dtype
         self.deformable_attention = CamDeformableAttention(
             embed_dims, num_heads, num_levels, num_points, dtype)
@@ -170,11 +200,33 @@ class SpatialCrossAttention(nn.Module):
         ref = torch.where(qmask[..., None, None], reference_points_cam,
                           torch.zeros((), dtype=reference_points_cam.dtype,
                                       device=reference_points_cam.device))
-        attn_out = self.deformable_attention(query, value, ref,
-                                             spatial_shapes)
-        # fp32 cross-camera accumulation
-        slots = torch.sum(attn_out * qmask[..., None].to(attn_out.dtype),
-                          dim=1, dtype=torch.float32)          # (B, nq, C)
+        nq = query.shape[1]
+        cap = self.query_capacity
+        if cap and cap < nq:
+            # a stable sort of the 0/1 mask, as jax.lax.top_k is stable:
+            # the visible queries in index order, then the pad rows
+            idx = torch.sort(qmask.to(torch.uint8), dim=-1, descending=True,
+                             stable=True).indices[..., :cap]   # (B, cam, K)
+            valid = torch.gather(qmask, 2, idx)
+            ref_k = torch.gather(ref, 2, idx[..., None, None].expand(
+                -1, -1, -1, *ref.shape[3:]))           # (B, cam, K, A, 2)
+            out_k = self.deformable_attention(query, value, ref_k,
+                                              spatial_shapes, gather_idx=idx)
+            contrib = out_k * valid[..., None].to(out_k.dtype)
+            # back to the query slots: the K indices of a camera are
+            # distinct, so a scatter (no adds, no atomics) into each
+            # camera's own rows, then the dense path's fp32 camera sum
+            per_cam = torch.zeros(contrib.shape[:2] + (nq, contrib.shape[3]),
+                                  dtype=torch.float32, device=contrib.device)
+            per_cam = per_cam.scatter(2, idx[..., None].expand_as(contrib),
+                                      contrib.float())
+            slots = per_cam.sum(dim=1)                          # (B, nq, C)
+        else:
+            attn_out = self.deformable_attention(query, value, ref,
+                                                 spatial_shapes)
+            # fp32 cross-camera accumulation
+            slots = torch.sum(attn_out * qmask[..., None].to(attn_out.dtype),
+                              dim=1, dtype=torch.float32)      # (B, nq, C)
         # per-query camera hit count (spatial_cross_attention.py:170-173)
         count = qmask.float().sum(dim=1).clamp_min(1.0)
         slots = (slots / count[..., None]).to(self.dtype)

@@ -88,7 +88,10 @@ class VERConfig:
     # hand-written kernel, a CPU tensor always takes the plain version)
     deform_impl: str = "onehot"
     remat_encoder: bool = False
-    # capacity-bounded sparse lift; only 0 (the dense lift) is ported
+    # capacity-bounded sparse lift: each camera attends from at most this
+    # many visible queries (0 = the dense lift); size it with
+    # geometry.max_visible_queries / python -m
+    # vln_ver_tpu_torch.check_query_capacity
     sca_query_capacity: int = 0
 
     def __post_init__(self):

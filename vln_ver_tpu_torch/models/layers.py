@@ -42,11 +42,12 @@ class Dense(nn.Module):
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax ``nn.LayerNorm``: eps 1e-6 (torch's default is 1e-5),
-    statistics in fp32, output in ``dtype``."""
+    """flax ``nn.LayerNorm``: eps 1e-6 by default (torch's default is
+    1e-5), statistics in fp32, output in ``dtype``."""
 
-    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
-        super().__init__(dim, eps=1e-6)
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-6):
+        super().__init__(dim, eps=eps)
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

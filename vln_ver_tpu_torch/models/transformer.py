@@ -69,8 +69,13 @@ class VoxelTransformer(nn.Module):
           world2pixel: (B, num_cams, 4, 4).
           origin_shift: (B, 3).
         Returns:
-          ((B, bev_num, C) voxel embedding, sca_overflow), where
-          ``sca_overflow`` is the constant 0 of the dense lift.
+          ((B, bev_num, C) voxel embedding, sca_overflow).  With a query
+          capacity K (``sca_query_capacity``, below bev_num)
+          ``sca_overflow`` is the number of visible queries beyond K in the
+          worst (sample, camera) slot, clamped at 0, as an int64 scalar on
+          the device: nonzero means the sparse lift dropped queries, and
+          the callers (get_occ, test, train) fail on it.  The dense lift
+          drops nothing: the constant 0.
         """
         cfg = self.cfg
         b, num_cams, fh, fw, c = features.shape
@@ -88,8 +93,14 @@ class VoxelTransformer(nn.Module):
         cam_xy = cam_xy[:, :, :, None, :]       # (B, cams, nq, 1, 2)
         mask = mask[:, :, :, None]              # (B, cams, nq, 1)
 
+        cap = cfg.sca_query_capacity
+        overflow = 0
+        if cap and cap < mask.shape[2]:
+            visible = mask.any(dim=-1).sum(dim=-1)             # (B, cams)
+            overflow = (visible.max() - cap).clamp_min(0)
+
         embed = self.encoder(bev_queries, value, cam_xy, mask, ((fh, fw),))
-        return embed, 0
+        return embed, overflow
 
     def forward(self, features: torch.Tensor, bev_queries: torch.Tensor,
                 object_query_embed: torch.Tensor, world2pixel: torch.Tensor,

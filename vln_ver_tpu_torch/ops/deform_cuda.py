@@ -369,9 +369,10 @@ def _sm_count(device) -> int:
 
 class _CudaKernel:
     """One ctypes-bound kernel: loads its library at first use, counts its
-    launches in ``launches`` and keeps the plan of the latest launch in
-    ``last_plan``.  Subclasses name the library, the C entry point and its
-    arguments' types, and marshal the arguments."""
+    launches in ``launches`` and keeps the plan and the query count of the
+    latest launch in ``last_plan`` and ``last_nq``.  Subclasses name the
+    library, the C entry point and its arguments' types, and marshal the
+    arguments."""
 
     library = symbol = ""
     argtypes: list = []
@@ -379,11 +380,13 @@ class _CudaKernel:
     def __init__(self):
         self.launches = 0
         self.last_plan = None
+        self.last_nq = None
         self._fn = None
 
-    def _launch(self, plan, device, *args) -> None:
+    def _launch(self, plan, nq, device, *args) -> None:
         """Call the entry point with ``args`` and the device's current
-        stream; raise on a CUDA error, else count the launch."""
+        stream; raise on a CUDA error, else count the launch of ``nq``
+        queries a slot."""
         if self._fn is None:
             from .build import load_library
             fn = getattr(load_library(self.library), self.symbol)
@@ -398,6 +401,7 @@ class _CudaKernel:
                                f"{err}")
         self.launches += 1
         self.last_plan = plan
+        self.last_nq = nq
 
 
 class DeformAttn2dKernel(_CudaKernel):
@@ -430,7 +434,7 @@ class DeformAttn2dKernel(_CudaKernel):
             return out
         plan = self.plan(bs, heads, nq, H * W, d, value.element_size(),
                          value.device)
-        self._launch(plan, value.device, value.data_ptr(),
+        self._launch(plan, nq, value.device, value.data_ptr(),
                      locations.data_ptr(), weights.data_ptr(),
                      out.data_ptr(), bs, H, W, heads, d, nq, P,
                      int(value.dtype == torch.bfloat16), plan.chunk,
@@ -493,7 +497,7 @@ class DeformAttn2dBackwardKernel(_CudaKernel):
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        self._launch(plan, dev, value.data_ptr(), locations.data_ptr(),
+        self._launch(plan, nq, dev, value.data_ptr(), locations.data_ptr(),
                      weights.data_ptr(), grad_out.data_ptr(), ptr(dv),
                      ptr(dl), ptr(dw), bs, H, W, heads, d, nq, P,
                      int(value.dtype == torch.bfloat16), plan.value_ctas,

@@ -56,8 +56,8 @@ def make_train_step(cfg: VERConfig, tc: TrainConfig) -> Callable:
         metrics = {k: v.detach() for k, v in loss_dict.items()}
         metrics["loss"] = total.detach()
         metrics["grad_norm"] = grad_norm
-        # the dense lift drops nothing: the constant 0 (the capacity lift
-        # that can overflow is not ported)
+        # the sparse lift's dropped visible queries in the worst camera
+        # slot, a tensor on the device (the dense lift's constant 0 too)
         metrics["sca_overflow"] = torch.as_tensor(outs["sca_overflow"],
                                                   device=dev)
         return metrics

@@ -7,7 +7,8 @@ reference dump schema (voxelformer_occupancy_head.py:627-638).  The stages
 overlap:
 
 * the dataset iterator prefetches HDF5 reads on its own thread;
-* a transfer thread casts and uploads batch k+1 while batch k computes;
+* a transfer thread casts (or quantises to int8) and uploads batch k+1
+  while batch k computes;
 * batch k's result is copied to pinned host memory behind an event, so
   batch k+1 is queued on the card before the host waits for batch k;
 * gzip + HDF5 writes run on a writer thread that alone owns the output
@@ -28,6 +29,55 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+_CASTS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def quantize_int8(feats):
+    """Symmetric int8 quantisation of a (B, cams, fh, fw, C) feature batch
+    per (sample, camera, channel), the port's copy of
+    ``vln_ver_tpu/ver_writer.py:quantize_int8``: ``scale = absmax / 127``
+    over the spatial axes; returns ``(q int8, scale fp32)`` with ``scale``
+    shaped (B, cams, 1, 1, C).  |f - q * scale| <= absmax / 254 within each
+    (camera, channel) slab."""
+    f = np.asarray(feats, dtype=np.float32)
+    absmax = np.max(np.abs(f), axis=(2, 3), keepdims=True)
+    scale = (np.maximum(absmax, 1e-12) / 127.0).astype(np.float32)
+    q = np.clip(np.rint(f / scale), -127, 127).astype(np.int8)
+    return q, scale
+
+
+def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """The features of :func:`quantize_int8`, on ``q``'s device: the
+    product in fp32 (the scales' precision), then the compute dtype."""
+    return (q.float() * scale).to(dtype)
+
+
+def _upload_cast(ver, input_cast="auto", input_key: str = "features"):
+    """What :func:`dump_volumes` does to a batch's ``input_key`` before the
+    upload: ``"int8"`` (quantise), a torch dtype (cast) or None (upload as
+    it is).  ``"auto"`` is the model's compute dtype where it is narrower
+    than fp32, else None; ``"float32"`` and ``"bfloat16"`` name the dtype;
+    None uploads as it is.  uint8 images take only ``"auto"`` or None: they
+    are already the smallest exact payload."""
+    if input_key == "images":
+        if input_cast not in (None, "auto"):
+            raise ValueError(
+                f"input_cast={input_cast!r} is a feature-upload option; "
+                "the image path uploads uint8 (exact) already")
+        return None
+    if input_key != "features":
+        raise ValueError(f"input_key must be 'features' or 'images', got "
+                         f"{input_key!r}")
+    if input_cast == "auto":
+        return ver.dtype if ver.dtype.itemsize < 4 else None
+    if input_cast is None or input_cast == "int8":
+        return input_cast
+    if input_cast not in _CASTS:
+        raise ValueError(f"input_cast must be 'auto', None, 'float32', "
+                         f"'bfloat16' or 'int8', got {input_cast!r}")
+    return _CASTS[input_cast]
+
 
 def volumes_from_bev(bev: np.ndarray, ver) -> np.ndarray:
     """(B, bev_num, C) voxel embeddings -> (B, C, Z, H, W) contiguous fp32,
@@ -44,14 +94,22 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
                  indices: Optional[Sequence[int]] = None,
                  device="cuda", input_cast="auto", mesh=None,
                  input_key: str = "features") -> dict:
-    """Run ``bev_only(feats, w2p, shift) -> (bev, overflow)`` on ``device``
-    over ``dataset`` and write each volume to ``savename`` (HDF5,
-    key=token, gzip at ``gzip_level``; an existing key is replaced).
+    """Run ``bev_only(inputs, w2p, shift) -> (bev, overflow)`` on
+    ``device`` over ``dataset`` and write each volume to ``savename``
+    (HDF5, key=token, gzip at ``gzip_level``; an existing key is
+    replaced).
 
-    ``input_cast="auto"`` casts the features to the model's compute dtype
-    before the upload when that dtype is narrower than fp32 (the model's
-    first touch of them is that cast anyway).  ``"int8"``, ``mesh`` and
-    ``input_key="images"`` are not ported yet and raise.
+    ``input_key`` is the batch entry fed as ``inputs``: ``"features"``
+    (precomputed ViT features) or ``"images"`` (raw uint8 views, for a
+    ``bev_only`` that runs the ViT frontend and the lift in one call).
+    ``input_cast`` is what happens to them before the upload
+    (:func:`_upload_cast`): ``"auto"`` casts features to the model's
+    compute dtype where it is narrower than fp32 (the model's first touch
+    of them is that cast anyway), ``"float32"`` / ``"bfloat16"`` cast to
+    that dtype, None uploads as it is, and ``"int8"`` uploads
+    :func:`quantize_int8`'s int8 values and fp32 scales and dequantises
+    on the device before ``bev_only`` (not exact).  ``mesh`` is not
+    ported yet and raises.
 
     Returns ``dict(written, seconds, volumes_per_sec, sca_overflow)``;
     the caller decides what a nonzero overflow means.
@@ -60,21 +118,12 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
 
     from .data.mp3d import iterate_batches
 
-    if input_cast == "int8":
-        raise NotImplementedError(
-            "input_cast='int8' (quantised upload) is not ported yet "
-            "(ROADMAP Queue 1, int8 upload)")
-    if input_cast != "auto":
-        raise ValueError(f"input_cast must be 'auto', got {input_cast!r}")
     if mesh is not None:
         raise NotImplementedError(
-            "mesh dumps are not ported yet (ROADMAP Queue 1, mesh dumps)")
-    if input_key != "features":
-        raise NotImplementedError(
-            f"input_key={input_key!r}: the fused image path is not ported "
-            "yet (ROADMAP Queue 1, --from-images)")
+            "mesh dumps are not ported yet (ROADMAP Queue 1, item 6c, with "
+            "multi-GPU in item 13)")
+    cast = _upload_cast(ver, input_cast, input_key)
     device = torch.device(device)
-    cast = ver.dtype if ver.dtype.itemsize < 4 else None
 
     write_q: "queue_mod.Queue" = queue_mod.Queue(maxsize=4)
     werr: list = []
@@ -107,12 +156,15 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
                     return
 
     def prep(batch):
-        """Cast and upload one batch (on the transfer thread when
-        pipelined)."""
-        feats = torch.from_numpy(np.asarray(batch[input_key]))
-        if cast is not None:
-            feats = feats.to(cast)
-        args = (feats.to(device),
+        """Cast or quantise and upload one batch (on the transfer thread
+        when pipelined)."""
+        if cast == "int8":
+            inputs = tuple(torch.from_numpy(a).to(device)
+                           for a in quantize_int8(batch[input_key]))
+        else:
+            x = torch.from_numpy(np.asarray(batch[input_key]))
+            inputs = ((x if cast is None else x.to(cast)).to(device),)
+        args = (*inputs,
                 torch.from_numpy(np.asarray(batch["world2pixel"])).to(device),
                 torch.from_numpy(np.asarray(batch["origin_shift"])).to(device))
         return args, list(batch["token"])
@@ -120,6 +172,9 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
     def dispatch(args, tokens):
         """Queue the lift and the copy of its result to the host; returns
         (host tensor, event or None, tokens, overflow)."""
+        if cast == "int8":
+            q, scale, *args = args
+            args = (dequantize_int8(q, scale, ver.dtype), *args)
         bev, ovf = bev_only(*args)
         bev = bev.float()
         if bev.is_cuda:
@@ -149,7 +204,7 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
         wt.start()
 
     t0 = time.perf_counter()
-    overflow = 0
+    overflows = []   # read once at the end: no sync per batch
     pending = None
     serial_file = h5py.File(savename, "a") if serial else None
     transfer = None if serial else ThreadPoolExecutor(
@@ -174,7 +229,7 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
                 staged = (transfer.submit(prep, nxt)
                           if nxt is not None else None)
             item = dispatch(args, tokens)
-            overflow = max(overflow, int(item[3]))
+            overflows.append(item[3])
             if serial:
                 _write(serial_file, *fetch_vol(item))
             else:
@@ -206,4 +261,4 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
     dt = time.perf_counter() - t0
     return dict(written=written, seconds=dt,
                 volumes_per_sec=written / max(dt, 1e-9),
-                sca_overflow=overflow)
+                sca_overflow=max((int(o) for o in overflows), default=0))
