@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's VER volume path, its full forward and eval path,
-its training path and the VLN agent's evaluation path once on one NVIDIA
-GPU.
+its training path and the VLN agent's evaluation and training paths once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -102,7 +102,29 @@ Phases (any failure exits nonzero, nothing is caught):
      policy step alone at batch 1 and 8, in a CUDA graph and eager,
      beside its bound (the weights and inputs it reads and the outputs it
      writes over the HBM rate, GEMM operations over the fp32 peak); then
-     an ``agent`` JSON line.  Then the ``kernels`` line.
+     an ``agent`` JSON line;
+  9. the VLN agent's training as ``python -m vln_ver_tpu_torch.pretrain_vln``
+     and ``train_vln`` run it, at phase 8's full width on phase 8's
+     environment and volumes (no new kernel launch): the offline teacher
+     records of its 16 episodes; pretraining (VLNPretrainModel, the policy
+     plus the MLM head, random weights from seed 3, batch 16, dropout on,
+     clip 40 + AdamW lr 5e-5) and imitation with DAgger (phase 8's
+     seed-2 policy, student actions in half the rollouts, lockstep
+     rollouts of 8 episodes, updates of 8 decision steps, dropout off,
+     lr 1e-4), each through the CLI's own update loop: first one update's
+     losses and every gradient on the card against the CPU's (the same
+     weights and batch, pretraining's masked tokens drawn once, dropout
+     off, the card's ReLUs pinned to the CPU's masks; losses within rtol
+     1e-4, each gradient and the global norm within 1e-4 in relative L2;
+     agent/replay.py), then 2 warm-up and 8 timed updates, every loss
+     finite and the parameters moved: updates/s, decision steps trained/s,
+     ms per update of the rollout (host), stacking and upload, forward and
+     loss, backward, clip and AdamW (CUDA events), peak device memory, the
+     busy share of one profiled update, GFLOP an update; then the handoff:
+     save_model, load_model into a new policy (the weights equal) and
+     evaluate_batched at batch 8 over the 16 episodes, every metric finite
+     and in range; an ``agent_train`` JSON line.  Then the ``kernels``
+     line and the script's total time.
 The last line is the ``{"ok": true, "device": ...}`` JSON object.
 """
 
@@ -119,6 +141,7 @@ import time
 import numpy as np
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor FLOP/s
 HBM_BYTES_PER_S = 3.35e12
@@ -146,6 +169,14 @@ AGENT_VOCAB, AGENT_TEXT_LEN, AGENT_BATCH = 4000, 80, 8
 AGENT_RATE_EPISODES, AGENT_RATE_PASSES = 256, 2
 # R2R's reference paths: 4 to 6 edges (Anderson et al., CVPR 2018, sec. 3)
 R2R_PATH_EDGES = "4-6"
+# phase 9: the agent's training on phase 8's environment and volumes; the
+# JAX CLIs' defaults (pretrain batch 16 at lr 5e-5; DAgger with student
+# actions half the time at lr 1e-4), lockstep rollouts of 8 episodes,
+# updates of 8 decision steps
+PRETRAIN_BATCH, PRETRAIN_LR = 16, 5e-5
+DAGGER_SAMPLE_PROB, DAGGER_EPISODE_BATCH, DAGGER_UPDATE_BATCH = 0.5, 8, 8
+DAGGER_LR = 1e-4
+AGENT_TRAIN_WARMUP, AGENT_TRAIN_UPDATES = 2, 8
 
 
 def fail(msg: str) -> None:
@@ -1193,17 +1224,17 @@ def _check_metrics(per_episode, what):
             fail(f"{what}: episode {i} metrics out of range {bad}: {m}")
 
 
-def agent_profile(policy, env, cfg, card):
-    """One batch-8 rollout under torch.profiler: the device's busy share
-    of the wall time and its largest kernels."""
+def busy_share(fn, what, card):
+    """``fn()`` once under torch.profiler: the device's busy share of the
+    wall time, printed with the largest kernels (None where the profiler
+    recorded no device time)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from vln_ver_tpu_torch.agent.rollout import run_episodes_batched
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        run_episodes_batched(policy, env, list(range(AGENT_BATCH)), cfg)
+        fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.key_averages()
@@ -1211,16 +1242,24 @@ def agent_profile(policy, env, cfg, card):
               and str(e.device_type).endswith("CUDA")]
     dev_us = sum(e.self_device_time_total for e in events)
     if not dev_us:
-        print("agent device busy share: not measured (the profiler recorded "
-              "no device time)")
+        print(f"{what} device busy share: not measured (the profiler "
+              "recorded no device time)")
         return None
-    print(f"agent device busy share of a batch-{AGENT_BATCH} rollout: "
-          f"{100 * dev_us / 1e6 / wall:.1f}% of {1e3 * wall:.3f} ms wall "
-          f"(profiled run) [{card}]")
+    print(f"{what} device busy share: {100 * dev_us / 1e6 / wall:.1f}% of "
+          f"{1e3 * wall:.3f} ms wall (profiled run) [{card}]")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
               f"x{e.count:<5d} {e.key[:90]}")
     return dev_us / 1e6 / wall
+
+
+def agent_profile(policy, env, cfg, card):
+    """One batch-8 rollout under torch.profiler: the device's busy share
+    of the wall time and its largest kernels."""
+    from vln_ver_tpu_torch.agent.rollout import run_episodes_batched
+    return busy_share(lambda: run_episodes_batched(
+        policy, env, list(range(AGENT_BATCH)), cfg),
+        f"agent batch-{AGENT_BATCH} rollout", card)
 
 
 def agent_path(ver, card):
@@ -1316,7 +1355,7 @@ def agent_path(ver, card):
           f"skipped; the CPU took {time.perf_counter() - t0:.2f}s ok")
     out["agent_max_abs_err_logits"] = held["worst"]["logits"]
     out.update(agent_step_times(policy, cpu_policy, rec.calls, card))
-    return out
+    return out, (cfg, episodes, graphs, vols)
 
 
 def agent_rates(policy, env, cfg, card):
@@ -1459,6 +1498,285 @@ def agent_step_times(policy, cpu_policy, calls, card):
                     f"agent_step_bound_ms_b{batch}": bound,
                     f"agent_step_bytes_b{batch}": moved,
                     f"agent_step_gflop_b{batch}": ops / 1e9})
+    return out
+
+
+def agent_hold(name, cpu_model, card_model, loss_of, card):
+    """Phase 9: one update's losses and gradients on the card against the
+    CPU's, from the same weights and batch, dropout off, the card's ReLUs
+    pinned to the CPU run's masks (agent/replay.py's bounds).  Returns the
+    GFLOP of the update (forward and backward, counted on the CPU by
+    FlopCounterMode)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from vln_ver_tpu_torch.agent.replay import (GRAD_REL_L2, LOSS_RTOL,
+                                                hold_update, loss_and_grads)
+    masks = []
+    t0 = time.perf_counter()
+    with FlopCounterMode(display=False) as flops:
+        ref = loss_and_grads(cpu_model, loss_of(cpu_model, "cpu"),
+                             record=masks)
+    cpu_s = time.perf_counter() - t0
+    got = loss_and_grads(card_model, loss_of(card_model, "cuda"), pin=masks)
+    try:
+        held = hold_update(got, ref)
+    except AssertionError as e:
+        fail(f"{name}: {e}")
+    gflop = flops.get_total_flops() / 1e9
+    print(f"{name} card vs CPU (one update, dropout off, {got['flips']} "
+          f"ReLU elements pinned to the CPU's masks): losses "
+          + ", ".join(f"{k} {v:.6f}" for k, v in got["parts"].items())
+          + f"; worst relative loss difference {held['loss'][0]:.3e} "
+          f"({held['loss'][1]}) (rtol {LOSS_RTOL}); worst relative gradient "
+          f"L2 difference {held['grad'][0]:.3e} ({held['grad'][1]}), global "
+          f"norm {ref['gnorm']:.6f} within {held['gnorm']:.3e} (bound "
+          f"{GRAD_REL_L2}); {gflop:.2f} GFLOP an update (forward and "
+          f"backward); the CPU took {cpu_s:.2f}s ok [{card}]")
+    return gflop, held
+
+
+def stage_split(stages, n):
+    """ms per update of each stage, from the ``agent.update.mark`` events of
+    ``n`` updates: "start", "upload", "forward", "backward", "optimizer"."""
+    import torch
+    torch.cuda.synchronize()
+    split = {}
+    for (_, a), (name, b) in zip(stages, stages[1:]):
+        if name != "start":
+            split[name] = split.get(name, 0.0) + a.elapsed_time(b) / n
+    return split
+
+
+def timed_updates(name, updates, lossy, decisions_per_update, card,
+                  stages, times=None):
+    """AGENT_TRAIN_WARMUP updates of the generator ``updates``, then
+    AGENT_TRAIN_UPDATES timed ones; every loss finite.  Returns the
+    numbers of the window."""
+    import torch
+    losses = [lossy(next(updates)) for _ in range(AGENT_TRAIN_WARMUP)]
+    torch.cuda.synchronize()
+    stages.clear()
+    before = dict(times or {})
+    t0 = time.perf_counter()
+    for _ in range(AGENT_TRAIN_UPDATES):
+        losses.append(lossy(next(updates)))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    host = [{k: float(v) for k, v in parts.items()} | {"loss": float(loss)}
+            for loss, parts in losses]
+    bad = [i for i, m in enumerate(host)
+           if not all(np.isfinite(v) for v in m.values())]
+    if bad:
+        fail(f"{name}: non-finite losses at updates {bad}: {host}")
+    split = stage_split(stages, AGENT_TRAIN_UPDATES)
+    rollout = {}
+    if times is not None:
+        # the window's rollouts, and (for the steady state) every rollout
+        # so far: the warm-up's and the window's
+        win = {k: v - before.get(k, 0) for k, v in times.items()}
+        split = {"rollout": 1e3 * win["rollout"] / AGENT_TRAIN_UPDATES,
+                 **split}
+        calls = times["policy_calls"]
+        rollout = dict(window_rollouts=win["rollouts"],
+                       rollouts=times["rollouts"], sampled=times["sampled"],
+                       policy_calls=calls, decisions=times["decisions"],
+                       **{f"host_{k}_ms": 1e3 * times[k] / calls
+                          for k in ("env", "memory", "upload", "policy")})
+    rate = AGENT_TRAIN_UPDATES / secs
+    print(f"{name}: {AGENT_TRAIN_UPDATES} updates in {secs:.4f}s = "
+          f"{rate:.3f} updates/s, {rate * decisions_per_update:.2f} "
+          f"decision steps trained/s; ms per update: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + " (rollout on the host clock, the rest between CUDA events); "
+          f"losses " + " ".join(f"{m['loss']:.4f}" for m in host)
+          + f" [{card}]")
+    if rollout:
+        # a rollout's records feed updates beyond the window: the steady
+        # state pays its host seconds per decision collected, plus the
+        # updates' seconds per decision trained
+        per_dec = times["rollout"] / rollout["decisions"]
+        upd = ((secs - win["rollout"])
+               / (AGENT_TRAIN_UPDATES * decisions_per_update))
+        rollout.update(rollout_ms_per_decision=1e3 * per_dec,
+                       update_ms_per_decision=1e3 * upd,
+                       steady_decisions_per_s=1 / (per_dec + upd))
+        print(f"{name}: {rollout['window_rollouts']} rollouts in the "
+              f"window; all {rollout['rollouts']} so far "
+              f"({rollout['sampled']} with the student's actions): "
+              f"{rollout['policy_calls']} policy calls for "
+              f"{rollout['decisions']} decisions; host ms per call: "
+              + ", ".join(f"{k[5:-3]} {v:.3f}" for k, v in rollout.items()
+                          if k.startswith("host_"))
+              + f"; {1e3 * per_dec:.3f} ms of rollout per decision "
+              f"collected, {1e3 * upd:.3f} ms of update per decision "
+              f"trained: {1 / (per_dec + upd):.2f} decision steps trained/s "
+              f"in the steady state [{card}]")
+    return dict(updates_per_s=rate, seconds=secs,
+                decisions_per_s=rate * decisions_per_update,
+                ms=split, losses=[m["loss"] for m in host], **rollout)
+
+
+def moved(before, model):
+    """The largest parameter change since ``before`` (fails if none)."""
+    import torch
+    with torch.no_grad():
+        delta = max(float((p.cpu() - b).abs().max())
+                    for p, b in zip(model.parameters(), before))
+    if not delta > 0:
+        fail("training left every parameter as it was")
+    return delta
+
+
+def agent_training(cfg, episodes, graphs, vols, card):
+    """Phase 9: the agent's trainers at full width on phase 8's synthetic
+    environment and VER volumes (no new forward launch).  Returns its
+    numbers."""
+    import tempfile
+
+    import torch
+
+    from vln_ver_tpu_torch.agent.env import R2REnv
+    from vln_ver_tpu_torch.agent.policy import VLNPolicy, build_policy
+    from vln_ver_tpu_torch.agent.pretrain import (VLNPretrainModel,
+                                                  collect_teacher_trace,
+                                                  init_pretrain_params,
+                                                  mask_tokens, stack_records)
+    from vln_ver_tpu_torch.agent.rollout import (episode_metrics,
+                                                 evaluate_batched,
+                                                 imitation_step_loss,
+                                                 mean_metrics,
+                                                 run_episodes_batched)
+    from vln_ver_tpu_torch.agent.update import make_train_state
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    from vln_ver_tpu_torch.pretrain_vln import pretrain_updates
+    from vln_ver_tpu_torch.train_vln import dagger_updates
+    from vln_ver_tpu_torch.utils.checkpoint import load_model, save_model
+
+    t_phase = time.perf_counter()
+    KERNEL.launches = KERNEL_BWD.launches = 0
+    env = R2REnv(episodes[:AGENT_EPISODES], graphs, vols,
+                 max_nodes=cfg.max_nodes)
+    records = [r for i in range(len(env.episodes))
+               for r in collect_teacher_trace(env, i, cfg)]
+    out = {"records": len(records)}
+
+    # -- pretraining (VLNPretrainModel: the policy and the MLM head) -----
+    masked = mask_tokens(torch.Generator().manual_seed(11), stack_records(
+        records[:PRETRAIN_BATCH])["instruction"], cfg.vocab_size)
+
+    def pretrain_loss_of(model, dev):
+        batch = stack_records(records[:PRETRAIN_BATCH], dev)
+        t = [m.to(dev) for m in masked]
+
+        def fn():
+            parts = model(batch, *t)
+            return sum(parts.values()), parts
+        return fn
+
+    model = init_pretrain_params(VLNPretrainModel(cfg), 3)
+    n_pre = sum(p.numel() for p in model.parameters())
+    card_model = init_pretrain_params(VLNPretrainModel(cfg), 3).cuda()
+    out["pretrain_gflop"], _ = agent_hold(
+        f"agent pretraining ({n_pre} parameters, batch {PRETRAIN_BATCH})",
+        model.eval(), card_model.eval(), pretrain_loss_of, card)
+    del model
+    model = card_model.train()
+    before = [p.detach().to("cpu", copy=True) for p in model.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    torch.manual_seed(0)
+    stages = []
+    updates = pretrain_updates(
+        model, make_train_state(model, PRETRAIN_LR), records, PRETRAIN_BATCH,
+        np.random.default_rng(0), torch.Generator("cuda").manual_seed(11),
+        "cuda", stages=stages)
+    out["pretrain"] = timed_updates(
+        f"agent pretraining at batch {PRETRAIN_BATCH} (dropout on, "
+        f"{len(records)} offline records)", updates, lambda u: u[1:],
+        PRETRAIN_BATCH, card, stages)
+    out["pretrain"]["max_param_change"] = moved(before, model)
+    out["pretrain"]["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    stages.clear()
+    out["pretrain"]["busy_share"] = busy_share(
+        lambda: next(updates), "agent pretraining update", card)
+    print(f"agent pretraining peak device memory "
+          f"{out['pretrain']['peak_mib']:.1f} MiB, largest parameter change "
+          f"{out['pretrain']['max_param_change']:.3e} [{card}]")
+    del model, card_model, updates, before
+
+    # -- imitation with DAgger (the policy: phase 8's weights) -----------
+    policy = build_policy(cfg, "cuda", seed=2)
+    gen = torch.Generator("cuda").manual_seed(7)
+    _, traces = run_episodes_batched(
+        policy, env, list(range(DAGGER_EPISODE_BATCH)), cfg, greedy=False,
+        generator=gen, collect_teacher=True)
+    dagger_recs = [r for t in traces for r in t][:DAGGER_UPDATE_BATCH]
+
+    def imitation_loss_of(pol, dev):
+        batch = stack_records(dagger_recs, dev)
+        return lambda: imitation_step_loss(pol, batch)
+
+    out["dagger_gflop"], _ = agent_hold(
+        f"agent imitation ({sum(p.numel() for p in policy.parameters())} "
+        f"parameters, {DAGGER_UPDATE_BATCH} steps of sampled rollouts)",
+        build_policy(cfg, "cpu", seed=2), policy, imitation_loss_of, card)
+    before = [p.detach().to("cpu", copy=True)
+              for p in policy.parameters()]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, stages = {}, []
+    updates = dagger_updates(
+        policy, make_train_state(policy, DAGGER_LR), env, cfg,
+        np.random.default_rng(0), gen, "cuda",
+        sample_prob=DAGGER_SAMPLE_PROB, episode_batch=DAGGER_EPISODE_BATCH,
+        update_batch=DAGGER_UPDATE_BATCH, times=times, stages=stages)
+
+    def lossy(u):
+        float(u[1])          # as train_vln logs every update
+        return u[1:]
+    out["dagger"] = timed_updates(
+        f"agent imitation with DAgger (sample prob {DAGGER_SAMPLE_PROB}, "
+        f"episode batch {DAGGER_EPISODE_BATCH}, update batch "
+        f"{DAGGER_UPDATE_BATCH}, dropout off)", updates, lossy,
+        DAGGER_UPDATE_BATCH, card, stages, times)
+    step = (AGENT_TRAIN_WARMUP + AGENT_TRAIN_UPDATES) * DAGGER_UPDATE_BATCH
+    out["dagger"]["max_param_change"] = moved(before, policy)
+    out["dagger"]["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"agent imitation peak device memory "
+          f"{out['dagger']['peak_mib']:.1f} MiB, largest parameter change "
+          f"{out['dagger']['max_param_change']:.3e} [{card}]")
+    stages.clear()
+    out["dagger"]["busy_share"] = busy_share(
+        lambda: next(updates), "agent imitation update (its rollout "
+        "included where the buffer runs short)", card)
+    step += DAGGER_UPDATE_BATCH
+    del updates, before
+
+    # -- the handoff: save_model -> load_model -> evaluate_batched -------
+    with tempfile.TemporaryDirectory() as root:
+        save_model(os.path.join(root, "ckpt"), step, policy)
+        fresh = VLNPolicy(cfg).cuda().eval()
+        load_model(os.path.join(root, "ckpt"), fresh)
+    same = all(torch.equal(a, b) for a, b in zip(
+        fresh.state_dict().values(), policy.state_dict().values()))
+    per_ep = episode_metrics(fresh, env, cfg, batch_size=AGENT_BATCH)
+    _check_metrics(per_ep, "handoff")
+    means = evaluate_batched(fresh, env, cfg, batch_size=AGENT_BATCH)
+    if not same or means != mean_metrics(per_ep):
+        fail(f"handoff: weights equal {same}, evaluate_batched equal to the "
+             f"per-episode means {means == mean_metrics(per_ep)}")
+    print(f"agent handoff: save_model at step {step}, load_model, "
+          f"evaluate_batched at batch {AGENT_BATCH} over {len(per_ep)} "
+          "episodes: " + json.dumps({k: round(v, 4)
+                                     for k, v in means.items()}) + " ok")
+    out["launches_fwd"], out["launches_bwd"] = (KERNEL.launches,
+                                                KERNEL_BWD.launches)
+    if KERNEL.launches or KERNEL_BWD.launches:
+        fail(f"phase 9 launched the deform kernels ({KERNEL.launches}, "
+             f"{KERNEL_BWD.launches}): it trains on phase 8's volumes")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"agent training phase: {out['seconds']:.2f}s, deform launches "
+          f"forward 0, backward 0 [{card}]")
     return out
 
 
@@ -1772,8 +2090,12 @@ def main() -> None:
         ver, samples, card)
 
     # -- phase 8: VER volumes -> the VLN agent's greedy evaluation ---------
-    agent = agent_path(ver, card)
+    agent, agent_env = agent_path(ver, card)
     print(json.dumps({"agent": {**agent, "card": card}}))
+
+    # -- phase 9: the agent's training on phase 8's volumes -----------------
+    agent_train = agent_training(*agent_env, card)
+    print(json.dumps({"agent_train": {**agent_train, "card": card}}))
 
     ms, eager_ms, plain_ms, bound_ms, bound_by, floor_ms = timing[
         "B=1 float32"]
@@ -1812,6 +2134,7 @@ def main() -> None:
         "launches_train_remat": train_extra["fwd_remat"],
         "launches_train_capacity": train_extra["fwd_capacity"],
         "launches_agent": agent["launches_agent"],
+        "launches_agent_train": agent_train["launches_fwd"],
         "card": card,
     }, {
         "name": "deform_attn_2d_backward",
@@ -1847,8 +2170,11 @@ def main() -> None:
         "launches_images": 0,
         "launches_train_remat": train_extra["bwd_remat"],
         "launches_train_capacity": train_extra["bwd_capacity"],
+        "launches_agent": 0,
+        "launches_agent_train": agent_train["launches_bwd"],
         "card": card,
     }]}))
+    print(f"chip_smoke total: {time.perf_counter() - T_START:.2f}s")
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

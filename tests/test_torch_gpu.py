@@ -595,3 +595,64 @@ def test_agent_batched_greedy_rollout_on_card_matches_cpu(cuda, tmp_path):
     held = replay(rec.calls, cpu)
     assert held["steps"] and held["compared"] > 0
     assert got == episode_metrics(cpu, env, cfg, batch_size=8)
+
+
+def _agent_records(tmp_path, cfg, objects):
+    from vln_ver_tpu_torch.agent.env import R2REnv, make_synthetic_vln
+    from vln_ver_tpu_torch.agent.pretrain import collect_teacher_trace
+    made = make_synthetic_vln(
+        str(tmp_path), num_scans=2, nodes_per_scan=9, num_episodes=8,
+        bev_num=32, embed_dims=cfg.embed_dims, vocab=cfg.vocab_size,
+        max_text_len=cfg.max_text_len, seed=1, with_objects=objects)
+    env = R2REnv(*made[:3], max_nodes=cfg.max_nodes,
+                 objects=made[3] if objects else None)
+    return [r for i in range(len(env.episodes))
+            for r in collect_teacher_trace(env, i, cfg)]
+
+
+@pytest.mark.parametrize("objects", [False, True], ids=["r2r", "reverie"])
+def test_agent_imitation_update_on_card_matches_cpu(cuda, tmp_path, objects):
+    """One imitation update's losses and gradients on the card against the
+    CPU's, from the same weights and stacked batch (dropout off), with the
+    bounds of chip_smoke.py phase 9 (agent/replay.py)."""
+    from vln_ver_tpu_torch.agent.pretrain import stack_records
+    from vln_ver_tpu_torch.agent.replay import hold_update, loss_and_grads
+    from vln_ver_tpu_torch.agent.rollout import imitation_step_loss
+    cfg, (card, cpu) = _agent_policies(cuda, grounding=objects)
+    recs = _agent_records(tmp_path, cfg, objects)[:8]
+    masks, res = [], {}
+    for policy, dev, kw in ((cpu, "cpu", dict(record=masks)),
+                            (card, cuda, dict(pin=masks))):
+        batch = stack_records(recs, dev)
+        res[str(dev)] = loss_and_grads(
+            policy, lambda: imitation_step_loss(policy, batch), **kw)
+    assert res["cpu"]["gnorm"] > 0
+    assert ("ground_nll" in res["cpu"]["parts"]) and (
+        (res["cpu"]["parts"]["ground_nll"] > 0) == objects)
+    hold_update(res[str(cuda)], res["cpu"])
+
+
+def test_agent_pretrain_update_on_card_matches_cpu(cuda, tmp_path):
+    """One pretraining update's losses and gradients on the card against
+    the CPU's: the same weights, batch and masked tokens, dropout off."""
+    import torch
+
+    from vln_ver_tpu_torch.agent.policy import PolicyConfig
+    from vln_ver_tpu_torch.agent.pretrain import (VLNPretrainModel,
+                                                  init_pretrain_params,
+                                                  mask_tokens, stack_records)
+    from vln_ver_tpu_torch.agent.replay import hold_update, loss_and_grads
+    cfg = PolicyConfig(**AGENT_KW)
+    recs = _agent_records(tmp_path, cfg, False)[:16]
+    masked = mask_tokens(torch.Generator().manual_seed(0),
+                         stack_records(recs)["instruction"], cfg.vocab_size)
+    masks, res = [], {}
+    for dev, kw in (("cpu", dict(record=masks)), (cuda, dict(pin=masks))):
+        model = init_pretrain_params(VLNPretrainModel(cfg), 3).to(dev).eval()
+        batch = stack_records(recs, dev)
+        t = [m.to(dev) for m in masked]
+        res[str(dev)] = loss_and_grads(
+            model, lambda: (lambda p: (sum(p.values()), p))(
+                model(batch, *t)), **kw)
+    assert sorted(res["cpu"]["parts"]) == ["mlm", "sap", "total"]
+    hold_update(res[str(cuda)], res["cpu"])

@@ -24,7 +24,12 @@ PRODUCT_PATH = ("models/vit.py", "convert/vit.py", "check_query_capacity.py",
 AGENT = ("agent/__init__.py", "agent/env.py", "agent/data.py",
          "agent/memory.py", "agent/attention.py", "agent/text.py",
          "agent/ver.py", "agent/policy.py", "agent/rollout.py",
-         "agent/replay.py", "convert/policy.py", "test_vln.py")
+         "agent/replay.py", "convert/policy.py", "test_vln.py",
+         # the agent's training: the trainers, pretraining and the
+         # converters of pretrained weights
+         "agent/pretrain.py", "agent/cli_setup.py", "agent/crossmodal.py",
+         "agent/update.py", "train_vln.py", "pretrain_vln.py",
+         "convert_text_encoder.py", "convert_crossmodal.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -79,7 +84,11 @@ def test_package_imports_without_h5py():
             " vln_ver_tpu_torch.check_query_capacity,"
             " vln_ver_tpu_torch.extract_vit_features,"
             " vln_ver_tpu_torch.agent.rollout, vln_ver_tpu_torch.agent.data,"
-            " vln_ver_tpu_torch.convert.policy, vln_ver_tpu_torch.test_vln; "
+            " vln_ver_tpu_torch.convert.policy, vln_ver_tpu_torch.test_vln,"
+            " vln_ver_tpu_torch.train_vln, vln_ver_tpu_torch.pretrain_vln,"
+            " vln_ver_tpu_torch.convert_text_encoder,"
+            " vln_ver_tpu_torch.convert_crossmodal,"
+            " vln_ver_tpu_torch.agent.cli_setup; "
             "from vln_ver_tpu_torch.data import synthetic_samples; "
             "synthetic_samples(1, 1, num_cams=1, feat_hw=2, feat_dim=4, "
             "occ_dims=(2, 4, 4)); print('ok')")

@@ -7,7 +7,13 @@ policy over VER volumes with volume state estimation and episodic memory.
 * ``policy``  — dual-scale (local volume / global map) cross-modal policy
 * ``env``     — R2R-format episode environment (host-side graph stepping)
 * ``data``    — R2R loaders, vocabularies, the VER HDF5 reader
-* ``rollout`` — greedy and sampled rollouts + SR/SPL evaluation
+* ``rollout`` — greedy and sampled rollouts + SR/SPL evaluation, the
+  imitation loss
+* ``pretrain`` — MLM / SAP / OG pretraining, offline teacher records
+* ``update``  — the trainers' clip + AdamW update
+* ``cli_setup`` — the trainers' shared setup and pretrained-weight grafts
+* ``crossmodal`` — DUET / LXMERT x-layers onto the fusion blocks
+* ``replay``  — card-vs-CPU holds of a policy call and of an update
 
 Only numpy and torch: nothing of the JAX package.
 """

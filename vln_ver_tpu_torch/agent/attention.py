@@ -1,6 +1,5 @@
 """flax ``nn.MultiHeadDotProductAttention`` in PyTorch, as the agent uses it
-(``qkv_features = out_features = C``, no dropout: evaluation runs
-deterministic).
+(``qkv_features = out_features = C``), with its attention dropout.
 
 Parameters keep flax's module names, ``query``, ``key``, ``value`` and
 ``out``, as :class:`~vln_ver_tpu_torch.models.layers.Dense` layers; flax's
@@ -12,6 +11,13 @@ The mask follows flax, not ``scaled_dot_product_attention``: masked scores
 are set to ``finfo(dtype).min``, so a query row whose keys are all masked
 (an invalid memory node in the global blocks) averages every value
 uniformly and stays finite, where ``-inf`` would give NaN.
+
+Dropout, active in ``train()`` and the identity in ``eval()``, is flax's
+default ``broadcast_dropout=True``: it falls on the attention *weights*
+after the softmax, with one keep mask of shape ``(Lq, Lk)`` shared by every
+batch row and head, scaled by ``1 / keep``.  An ``nn.Dropout`` on the
+``(B, heads, Lq, Lk)`` weights would draw another distribution.  The mask
+comes from the default generator of the weights' device.
 """
 
 from __future__ import annotations
@@ -27,12 +33,14 @@ from ..models.layers import Dense
 
 class MultiHeadAttention(nn.Module):
     def __init__(self, dims: int, num_heads: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 dropout_rate: float = 0.0):
         super().__init__()
         if dims % num_heads:
             raise ValueError(f"embed dims {dims} not divisible by "
                              f"{num_heads} heads")
         self.num_heads = num_heads
+        self.dropout_rate = dropout_rate
         self.query = Dense(dims, dims, dtype)
         self.key = Dense(dims, dims, dtype)
         self.value = Dense(dims, dims, dtype)
@@ -59,5 +67,9 @@ class MultiHeadAttention(nn.Module):
             scores = torch.where(mask, scores,
                                  torch.finfo(scores.dtype).min)
         weights = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+        if self.training and self.dropout_rate > 0.0:
+            keep = 1.0 - self.dropout_rate
+            mask = torch.rand(weights.shape[-2:], device=weights.device) < keep
+            weights = weights * (mask.to(weights.dtype) / keep)
         y = (weights @ v).transpose(1, 2).reshape(b, lq, c)
         return self.out(y)

@@ -15,12 +15,19 @@ module; ``ground_proj`` exists only in a policy built with
 ``grounding=True``, the counterpart of a JAX policy initialised with
 ``obj_feats`` (REVERIE).
 
-Evaluation runs deterministic: there is no dropout here (training, with
-its dropout, comes with the agent's training path).
+Dropout sits at the JAX module's places and rate (``dropout_rate``, 0.1):
+active in ``train()``, the identity in ``eval()``.  Attention drops its
+weights with one mask shared across batch and heads (flax's
+``broadcast_dropout``, ``attention.py``); a ``bert`` fusion block drops
+each of its three sublayers' outputs before its post-LN, a ``preln`` one
+only its FFN's output.  Evaluation and the imitation update run the
+policy with dropout off, as JAX's ``policy.apply`` does by default;
+pretraining runs it on (``pretrain.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Dict, NamedTuple, Optional
@@ -53,6 +60,7 @@ class PolicyConfig:
     bev_h: int = 15
     bev_w: int = 15
     num_query_tokens: int = 8
+    dropout_rate: float = 0.1
     dtype: torch.dtype = torch.float32
     # "preln" trains from scratch; "bert" matches HF BertModel's layout
     text_arch: str = "preln"
@@ -78,31 +86,33 @@ class _FusionBlock(nn.Module):
         if cfg.fusion_arch not in ("preln", "bert"):
             raise ValueError(f"fusion arch {cfg.fusion_arch!r}: 'preln' or "
                              "'bert'")
-        c, dt = cfg.embed_dims, cfg.dtype
+        c, dt, p = cfg.embed_dims, cfg.dtype, cfg.dropout_rate
         self.arch = cfg.fusion_arch
-        self.self_attn = MultiHeadAttention(c, cfg.num_heads, dt)
-        self.cross_attn = MultiHeadAttention(c, cfg.num_heads, dt)
+        self.self_attn = MultiHeadAttention(c, cfg.num_heads, dt, p)
+        self.cross_attn = MultiHeadAttention(c, cfg.num_heads, dt, p)
         self.ln_sa = LayerNorm(c, dt)
         self.ln_ca = LayerNorm(c, dt)
         self.ln_ffn = LayerNorm(c, dt)
         self.fc1 = Dense(c, cfg.ffn_dim, dt)
         self.fc2 = Dense(cfg.ffn_dim, c, dt)
+        self.dropout = nn.Dropout(p)
 
     def forward(self, x, x_mask, text, text_mask):
         # a query row of an invalid node masks every key: flax's min-fill
         # softmax averages it uniformly (attention.py)
         sa_mask = x_mask[:, None, None, :] & x_mask[:, None, :, None]
         ca_mask = text_mask[:, None, None, :]
+        drop = self.dropout
         if self.arch == "bert":
-            x = self.ln_ca(x + self.cross_attn(x, text, ca_mask))
-            x = self.ln_sa(x + self.self_attn(x, x, sa_mask))
+            x = self.ln_ca(x + drop(self.cross_attn(x, text, ca_mask)))
+            x = self.ln_sa(x + drop(self.self_attn(x, x, sa_mask)))
             y = self.fc2(F.gelu(self.fc1(x)))
-            return self.ln_ffn(x + y)
+            return self.ln_ffn(x + drop(y))
         y = self.ln_sa(x)
         x = x + self.self_attn(y, y, sa_mask)
         x = x + self.cross_attn(self.ln_ca(x), text, ca_mask)
         y = self.fc2(F.gelu(self.fc1(self.ln_ffn(x)), approximate="tanh"))
-        return x + y
+        return x + drop(y)
 
 
 class VLNPolicy(nn.Module):
@@ -114,11 +124,12 @@ class VLNPolicy(nn.Module):
             vocab_size=cfg.vocab_size, embed_dims=c,
             num_layers=cfg.text_layers, num_heads=cfg.num_heads,
             ffn_dim=cfg.text_ffn_dim or cfg.ffn_dim,
-            max_len=cfg.max_text_len, dtype=dt, arch=cfg.text_arch)
+            max_len=cfg.max_text_len, dropout_rate=cfg.dropout_rate,
+            dtype=dt, arch=cfg.text_arch)
         self.ver_tokenizer = VERTokenizer(
             embed_dims=c, bev_z=cfg.bev_z, bev_h=cfg.bev_h,
             bev_w=cfg.bev_w, num_query_tokens=cfg.num_query_tokens,
-            dtype=dt)
+            dropout_rate=cfg.dropout_rate, dtype=dt)
         self.volume_state_head = VolumeStateHead(c, dt)
         for i in range(cfg.fusion_layers):
             self.add_module(f"local_block_{i}", _FusionBlock(cfg))
@@ -237,9 +248,23 @@ def masked_grounding_ce(obj_logits: torch.Tensor,
     return -torch.where(has, picked, 0.0).sum() / has.sum().clamp(min=1)
 
 
-def random_state_dict(policy: VLNPolicy,
+@contextlib.contextmanager
+def dropout_off(module: nn.Module):
+    """Run the block with ``module`` in ``eval()`` (dropout off; autograd
+    untouched), then put back the mode it had."""
+    was = module.training
+    module.eval()
+    try:
+        yield module
+    finally:
+        module.train(was)
+
+
+def random_state_dict(policy: nn.Module,
                       seed: int) -> Dict[str, torch.Tensor]:
-    """Random weights for ``policy`` from ``np.random.default_rng(seed)``,
+    """Random weights for ``policy`` (a :class:`VLNPolicy`, or a module
+    built of the same kinds of layers, such as
+    ``pretrain.VLNPretrainModel``) from ``np.random.default_rng(seed)``,
     in ``state_dict`` order: LayerNorm scales 1 and biases 0 (flax's
     init), Dense kernels normal with variance 1/fan_in and biases normal
     with std 0.02, the token table normal with std 1 (flax ``nn.Embed``),

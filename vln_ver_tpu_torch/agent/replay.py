@@ -8,18 +8,33 @@ log-softmax over the unmasked actions and ``state_pred`` within ``RTOL`` /
 ``ATOL``, the ``-1e9`` action-mask entries equal, and the greedy action
 equal wherever the top-2 logit margin exceeds ``MARGIN`` (below it an
 error of 1e-6 may flip an argmax).  A mismatch raises ``AssertionError``.
+
+A trainer's update is held the same way (:func:`loss_and_grads`,
+:func:`hold_update`): one forward and backward on each device from the
+same weights and batch, dropout off, the ReLUs of the card's run pinned to
+the CPU's masks (``utils.params.relu_masks``); every loss within
+``LOSS_RTOL``, every parameter's gradient and the global norm within
+``GRAD_REL_L2`` in relative L2.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Callable, Dict, List, Optional
 
 import torch
+from torch import nn
 from torch.utils._pytree import tree_map
+
+from ..utils.params import grads_by_name, relu_masks
 
 RTOL = ATOL = 1e-4
 MARGIN = 1e-3
 MASKED = -1e9
+LOSS_RTOL = GRAD_REL_L2 = 1e-4
+# an absolute floor on a gradient's L2 difference: it takes the gradients
+# that are zero by structure (an attention key bias, whose shift of a
+# query row's logits the softmax cancels) to their fp32 noise
+GRAD_FLOOR = 1e-7
 
 
 def tensors(fn, tree):
@@ -139,3 +154,60 @@ def replay(calls, cpu_policy, rtol: float = RTOL, atol: float = ATOL,
             near += held["near"]
     return dict(worst=worst, steps=len(calls), compared=len(margins),
                 near=near, min_margin=min(margins, default=float("inf")))
+
+
+def loss_and_grads(model: nn.Module, loss_fn: Callable,
+                   record: Optional[List] = None,
+                   pin: Optional[List] = None) -> Dict:
+    """One forward (``loss_fn() -> (total, parts)``) and backward on
+    ``model``, no optimizer step.  Returns ``parts`` (floats, with
+    ``"total"``), ``grads`` ({name: gradient on the host}, zeros where
+    autograd left none), ``gnorm`` (their global norm) and ``flips`` (the
+    ReLU elements where a pinned mask overrode the run's own);
+    ``record`` / ``pin``: the ReLU masks (``utils.params.relu_masks``)."""
+    model.zero_grad(set_to_none=True)
+    with relu_masks(model, record=record, pin=pin) as flips:
+        total, parts = loss_fn()
+    total.backward()
+    grads = {n: g.detach().cpu() for n, g in grads_by_name(model).items()}
+    model.zero_grad(set_to_none=True)
+    gnorm = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g.double()) for g in grads.values()])))
+    return dict(parts={"total": float(total.detach()),
+                       **{k: float(v.detach()) for k, v in parts.items()}},
+                grads=grads, gnorm=gnorm, flips=flips[0])
+
+
+def hold_update(got: Dict, ref: Dict, loss_rtol: float = LOSS_RTOL,
+                grad_tol: float = GRAD_REL_L2) -> Dict:
+    """Two :func:`loss_and_grads` results, the card's (``got``) against the
+    CPU's (``ref``): the same loss keys, each within ``loss_rtol``; each
+    parameter's gradient within ``grad_tol`` of its L2 norm (plus
+    ``GRAD_FLOOR``); the global norm within ``grad_tol``.  Returns the
+    worst relative loss difference and its key (``loss``), the worst
+    relative gradient L2 difference among the gradients the relative bound
+    binds and its parameter (``grad``), and the global norm's (``gnorm``);
+    raises ``AssertionError`` on a mismatch."""
+    if set(got["parts"]) != set(ref["parts"]):
+        raise AssertionError(f"card vs CPU update: losses "
+                             f"{sorted(got['parts'])} vs "
+                             f"{sorted(ref['parts'])}")
+    loss = max((abs(got["parts"][k] - v) / max(abs(v), 1e-12), k)
+               for k, v in ref["parts"].items())
+    bad = [k for k, v in ref["parts"].items()
+           if abs(got["parts"][k] - v) > loss_rtol * abs(v)]
+    grad, failed = (0.0, None), []
+    for n, r in ref["grads"].items():
+        diff = float(torch.linalg.vector_norm((got["grads"][n] - r).double()))
+        norm = float(torch.linalg.vector_norm(r.double()))
+        if diff > grad_tol * norm + GRAD_FLOOR:
+            failed.append(n)
+        if grad_tol * norm > GRAD_FLOOR and diff / norm > grad[0]:
+            grad = (diff / norm, n)
+    gnorm = abs(got["gnorm"] - ref["gnorm"]) / max(ref["gnorm"], 1e-30)
+    if bad or failed or gnorm > grad_tol:
+        raise AssertionError(
+            f"card vs CPU update: losses {bad} over rtol {loss_rtol}, "
+            f"gradients {failed[:5]} over {grad_tol} in relative L2, global "
+            f"norm {gnorm:.3e}")
+    return dict(loss=loss, grad=grad, gnorm=gnorm)

@@ -1,5 +1,5 @@
-"""Episode rollouts for evaluation: greedy and sampled (PyTorch port of the
-evaluation half of ``vln_ver_tpu/agent/rollout.py``).
+"""Episode rollouts, greedy and sampled, and the imitation loss (PyTorch
+port of ``vln_ver_tpu/agent/rollout.py``).
 
 Graph stepping stays on the host; each decision step makes one host build
 of the episodic memory, one upload and one policy call on the policy's
@@ -17,6 +17,11 @@ the rollout loop: ``"env"`` (reset, observe, teacher, step, metrics),
 copying it to the device), ``"policy"`` (the call and the copy of its
 logits back, which waits for the device), and counts ``"policy_calls"``
 and ``"decisions"`` (the actions taken by episodes still running).
+
+:func:`imitation_step_loss` is the DAgger trainer's objective
+(``train_vln.py``): the rollouts collect teacher traces under inference
+mode, ``pretrain.stack_records`` stacks and uploads them, and the loss runs
+the policy on that batch with gradients and with dropout off.
 """
 
 from __future__ import annotations
@@ -29,7 +34,8 @@ import torch
 
 from .env import R2REnv
 from .memory import memory_from_arrays
-from .policy import PolicyConfig, VLNPolicy
+from .policy import (PolicyConfig, VLNPolicy, dropout_off,
+                     masked_grounding_ce)
 
 _MESH_TODO = ("mesh=: the agent's device mesh is not ported yet (ROADMAP "
               "Queue 1 item 13, multi-GPU)")
@@ -236,3 +242,35 @@ def evaluate_batched(policy: VLNPolicy, env: R2REnv, cfg: PolicyConfig,
         raise NotImplementedError(_MESH_TODO)
     return mean_metrics(episode_metrics(policy, env, cfg, limit,
                                         batch_size=batch_size, times=times))
+
+
+def imitation_step_loss(policy: VLNPolicy, batch: Dict,
+                        state_targets: Optional[torch.Tensor] = None):
+    """Cross-entropy to the teacher actions of one decision-step batch
+    (``pretrain.stack_records``: instruction (B, L), volume (B, nvox, C),
+    memory, cur_pos (B, 3), cur_slot (B,), teacher (B,), and obj_feats /
+    obj_valid / gt_obj with REVERIE objects), plus 0.5 x the volume-state
+    MSE against ``state_targets`` (B, 5) where given, plus the grounding
+    cross-entropy where the batch has ``gt_obj``.  Returns (total, parts).
+
+    The policy runs with dropout off whatever its mode, as the JAX
+    package's ``policy.apply`` does with no ``deterministic=False``;
+    gradients flow."""
+    obj_kw = {}
+    if "obj_feats" in batch:
+        obj_kw = dict(obj_feats=batch["obj_feats"],
+                      obj_valid=batch["obj_valid"])
+    with dropout_off(policy):
+        out = policy(batch["instruction"], batch["instruction"] > 0,
+                     batch["volume"], batch["memory"], batch["cur_pos"],
+                     batch["cur_slot"], **obj_kw)
+    logp = torch.log_softmax(out.logits, dim=-1)
+    nll = -torch.gather(logp, 1, batch["teacher"].long()[:, None]).mean()
+    zero = nll.new_zeros(())
+    aux = (zero if state_targets is None
+           else torch.mean((out.state_pred - state_targets) ** 2))
+    ground = zero
+    if out.obj_logits is not None and "gt_obj" in batch:
+        ground = masked_grounding_ce(out.obj_logits, batch["gt_obj"])
+    return (nll + 0.5 * aux + ground,
+            dict(action_nll=nll, state_mse=aux, ground_nll=ground))

@@ -1,5 +1,7 @@
 """Carry the JAX VLN policy's weights into the port's
-:class:`~vln_ver_tpu_torch.agent.policy.VLNPolicy`.
+:class:`~vln_ver_tpu_torch.agent.policy.VLNPolicy`, and the JAX pretrain
+model's (the ``policy`` subtree plus the MLM head) into
+:class:`~vln_ver_tpu_torch.agent.pretrain.VLNPretrainModel`.
 
 The port keeps flax's module names, so a flax leaf ``a/b/leaf`` lands on
 ``a.b.<name>`` with one rule per leaf kind:
@@ -27,7 +29,10 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
+from torch import nn
+
 from ..agent.policy import PolicyConfig, VLNPolicy
+from ..agent.pretrain import VLNPretrainModel
 
 
 def _flatten(tree: Mapping, prefix=()) -> Dict[tuple, np.ndarray]:
@@ -69,6 +74,27 @@ def policy_state_dict_from_jax(params: Mapping,
         params = params["params"]
     with torch.device("meta"):
         port = VLNPolicy(cfg, grounding="ground_proj" in params)
+    return _state_dict_from_tree(params, port)
+
+
+def pretrain_state_dict_from_jax(params: Mapping, cfg: PolicyConfig
+                                 ) -> Dict[str, torch.Tensor]:
+    """The port's ``VLNPretrainModel`` state dict from the JAX
+    ``VLNPretrainModel``'s parameters (its ``policy`` subtree and the
+    ``mlm_cross``, ``mlm_ln``, ``mlm_dense``, ``mlm_ln2`` and ``mlm_out``
+    head), by the same rules, strict both ways.  Load it into
+    ``VLNPretrainModel(cfg, grounding="ground_proj" in
+    params["policy"])``."""
+    if "params" in params:
+        params = params["params"]
+    with torch.device("meta"):
+        port = VLNPretrainModel(
+            cfg, grounding="ground_proj" in params["policy"])
+    return _state_dict_from_tree(params, port)
+
+
+def _state_dict_from_tree(params: Mapping,
+                          port: nn.Module) -> Dict[str, torch.Tensor]:
     want = {k: tuple(v.shape) for k, v in port.state_dict().items()}
     sd = {}
     for path, arr in _flatten(params).items():
