@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's VER volume path, its full forward and eval path,
-its training path and the VLN agent's evaluation and training paths once on
+its training path, the VLN agent's evaluation and training paths, the VER
+server and the multi-process paths (in a process group of one) once on
 one NVIDIA GPU.
 
     python3 chip_smoke.py
@@ -123,8 +124,42 @@ Phases (any failure exits nonzero, nothing is caught):
      busy share of one profiled update, GFLOP an update; then the handoff:
      save_model, load_model into a new policy (the weights equal) and
      evaluate_batched at batch 8 over the 16 episodes, every metric finite
-     and in range; an ``agent_train`` JSON line.  Then the ``kernels``
-     line and the script's total time.
+     and in range; an ``agent_train`` JSON line;
+  10. serve as ``python -m vln_ver_tpu_torch.serve`` does, in this
+     process (``serve.serve``): configs/verformer/get_occ.py, phase 4's
+     seed-0 model, ``--images`` with phase 4d's seed-1 ViT-B/16, batch_max
+     8, a queue of 12 feature requests (phase 4's viewpoints), 4 image
+     requests (4d's views) and 1 malformed one.  Every volume exactly
+     equal to a direct make_bev_only call on the same padded batch on the
+     card and within 1e-5 of phases 4 and 4d's, an error file for the
+     malformed request, 3 forward launches a served batch and no
+     backward.  The rates: the server on a thread of its own, warmed by
+     one full batch of each kind, then a backlog of 256 requests written
+     at once (a quarter image requests, viewpoints drawn from phase 4's),
+     each volume within 1e-5 of phases 4 and 4d's: requests/s over the
+     backlog, latency from the client's write to the response (median,
+     max), ms a batch by stage (claim, load and validate, upload, forward
+     by CUDA events, host copy, npz write), the padded share of the rows,
+     the forward's share of the window, then 3 lone requests of each kind
+     on the idle server, peak device memory; then ``--occupancy`` at
+     vocc.py width on 2 of phase 6's viewpoints at batch_max 2, the labels
+     and volumes equal to a direct forward and decode_occupancy; a
+     ``serve`` JSON line;
+  10b. one NCCL process group of world 1 (``parallel.multihost``, a local
+     address and a free port), the lift on a view shard of the world
+     group (index 0 of 1, so the view all-reduces run):
+     ``dump_volumes(mesh=make_mesh((1, 1)))`` over phase 4's viewpoints
+     (an in-memory stand-in for h5py) with the dense lift, the volumes
+     equal to phase 4's, and the sparse lift (capacity 256), within 1e-5
+     and no overflow; one ``train --mesh 1`` step at vocc.py width
+     (weights broadcast from rank 0, the gradients all-reduced) against
+     the plain step under cudnn.deterministic (phase 7's card_step /
+     hold_step: the matched queries, the losses and every gradient);
+     ``evaluate_model(mesh=)`` over phase 6's viewpoints equal to the
+     one-process eval; ``episode_metrics`` and ``evaluate_batched`` with
+     the mesh over phase 8's 16 episodes equal to the one-process run's;
+     the group destroyed.  Then the ``kernels`` line and the script's
+     total time.
 The last line is the ``{"ok": true, "device": ...}`` JSON object.
 """
 
@@ -134,6 +169,7 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -177,6 +213,13 @@ PRETRAIN_BATCH, PRETRAIN_LR = 16, 5e-5
 DAGGER_SAMPLE_PROB, DAGGER_EPISODE_BATCH, DAGGER_UPDATE_BATCH = 0.5, 8, 8
 DAGGER_LR = 1e-4
 AGENT_TRAIN_WARMUP, AGENT_TRAIN_UPDATES = 2, 8
+# phase 10: the server (the JAX tool's default batch_max) on phase 4's
+# viewpoints and 4d's views; its --occupancy run at vocc.py width
+SERVE_BATCH, SERVE_FEATURE_REQUESTS, SERVE_IMAGE_REQUESTS = 8, 12, 4
+SERVE_OCC_BATCH = 2
+# phase 10's rates: a backlog of requests drawn from phase 4's viewpoints,
+# a quarter of them image requests, then lone requests of each kind
+SERVE_RATE_REQUESTS, SERVE_RATE_IMAGE_SHARE, SERVE_LONE = 256, 0.25, 3
 
 
 def fail(msg: str) -> None:
@@ -829,12 +872,15 @@ def worst_relative(got, ref):
                for k in ref if k not in ("grad_norm", "sca_overflow"))
 
 
-def card_step(cfg, tc, host_batch, record=None, pin=None):
+def card_step(cfg, tc, host_batch, record=None, pin=None, mesh=None,
+              views=None):
     """One ``make_train_step`` on the card from the seed-0 weights: (the
     matched query of every GT slot of every match the step made, its
     metrics, every parameter's gradient, forward and backward launches and
     the nq of their last launches).  ``record`` / ``pin``: the ReLU masks
-    (``utils.params.relu_masks``)."""
+    (``utils.params.relu_masks``); ``mesh``: the step of ``train --mesh``
+    (the weights broadcast from rank 0, the gradients all-reduced);
+    ``views``: the lift's view shard (default: the mesh's)."""
     from unittest import mock
 
     import torch
@@ -853,13 +899,17 @@ def card_step(cfg, tc, host_batch, record=None, pin=None):
         return out
 
     model = build_model(cfg, "cuda", seed=0)
+    if mesh is not None:
+        from vln_ver_tpu_torch.parallel.mesh import replicate
+        replicate(mesh, model).shard_views(
+            mesh.views if views is None else views)
     state = create_train_state(model, tc)
     batch = to_device(host_batch, torch.device("cuda"))
     KERNEL.launches = KERNEL_BWD.launches = 0
     KERNEL.last_nq = KERNEL_BWD.last_nq = None
     with mock.patch.object(objective, "_match", match), \
             relu_masks(model, record=record, pin=pin):
-        metrics = make_train_step(cfg, tc)(state, batch, seed=1)
+        metrics = make_train_step(cfg, tc, mesh)(state, batch, seed=1)
     torch.cuda.synchronize()
     return (torch.cat(matches), {k: float(v) for k, v in metrics.items()},
             {n: g.cpu() for n, g in grads_by_name(model).items()},
@@ -1159,7 +1209,7 @@ def image_path(model, ver, w2p, shift, card):
     return dict(launches_images=launches,
                 volumes_per_s_images=N_VIEWPOINTS / secs,
                 vit_ms_per_batch=vit_ms,
-                upload_bytes_per_volume_images=per_vol)
+                upload_bytes_per_volume_images=per_vol), images, vols
 
 
 def agent_volumes(ver, graphs, vols, card):
@@ -1780,6 +1830,518 @@ def agent_training(cfg, episodes, graphs, vols, card):
     return out
 
 
+def _serve_args(config, queue, **kw):
+    import argparse
+    base = dict(config=os.path.join(REPO, config), cfg_options=None,
+                checkpoint=None, queue=queue, batch_max=SERVE_BATCH,
+                poll_ms=5, occupancy=False, max_requests=None, images=False,
+                vit_checkpoint=None, hf_prefix="", vit_patch_size=VIT_PATCH,
+                vit_layers=VIT_LAYERS, vit_heads=VIT_HEADS, device="cuda")
+    base.update(kw)
+    return argparse.Namespace(**base)
+
+
+def _enqueue(queue, reqs):
+    """Write ``{id: arrays}`` as request files, as a client does (a
+    dotfile, then a rename); returns the inbox."""
+    inbox = os.path.join(queue, "in")
+    os.makedirs(inbox, exist_ok=True)
+    for rid, arrays in reqs.items():
+        tmp = os.path.join(inbox, f".{rid}.tmp.npz")
+        np.savez(tmp, **arrays)
+        os.replace(tmp, os.path.join(inbox, f"{rid}.npz"))
+    return inbox
+
+
+def _response(queue, rid):
+    with np.load(os.path.join(queue, "out", f"{rid}.npz")) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _served_batches(reqs, batch_max, malformed=()):
+    """The server's micro-batches of ``reqs``: claims of ``batch_max``
+    names in sorted order (``malformed`` ids take their places in the
+    claims and are served by none), each split into its feature and image
+    requests (in that order) and padded by repeating its last row: [(ids,
+    padded (inputs, w2p, shift))]."""
+    out = []
+    names = sorted(list(reqs) + list(malformed))
+    for lo in range(0, len(names), batch_max):
+        chunk = names[lo:lo + batch_max]
+        for key in ("features", "images"):
+            ids = [r for r in chunk if r in reqs and key in reqs[r]]
+            if not ids:
+                continue
+            rows = ids + [ids[-1]] * (batch_max - len(ids))
+            out.append((ids, tuple(np.stack([reqs[r][k] for r in rows])
+                                   for k in (key, "world2pixel",
+                                             "origin_shift"))))
+    return out
+
+
+def serving(ver, feats, w2p, shift, dense_vols, images, image_vols, samples,
+            card):
+    """Phase 10; returns the forward kernel's launches over the served
+    queue and the phase's numbers."""
+    import tempfile
+
+    import torch
+
+    from vln_ver_tpu_torch.config import build_ver_config, load_config
+    from vln_ver_tpu_torch.get_occ import make_bev_only
+    from vln_ver_tpu_torch.models import build_model
+    from vln_ver_tpu_torch.models.vit import vit_for_ver
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    from vln_ver_tpu_torch.serve import make_forward, serve
+    from vln_ver_tpu_torch.ver_writer import volumes_from_bev
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_serve_")
+    queue = os.path.join(root, "q")
+    reqs = {f"f{i:02d}": _request(feats, w2p, shift, "features", i)
+            for i in range(SERVE_FEATURE_REQUESTS)}
+    reqs.update({f"i{i:02d}": _request(images, w2p, shift, "images", i)
+                 for i in range(SERVE_IMAGE_REQUESTS)})
+    inbox = _enqueue(queue, reqs)
+    # first in the claim order: it shares a claim with served requests
+    bad = os.path.join(inbox, "a-bad.npz")
+    np.savez(bad, features=np.zeros((1, 2, 2, 3), np.float32),
+             world2pixel=np.zeros((1, 4, 4), np.float32),
+             origin_shift=np.zeros(3, np.float32))
+    old = time.time() - 60      # an old write: malformed, not half-written
+    os.utime(bad, (old, old))
+
+    times = []
+    KERNEL.launches = KERNEL_BWD.launches = 0
+    served = serve(_serve_args("configs/verformer/get_occ.py", queue,
+                               images=True, max_requests=len(reqs)),
+                   times=times)
+    launches, bwd = KERNEL.launches, KERNEL_BWD.launches
+    batches = _served_batches(reqs, SERVE_BATCH, malformed=("a-bad",))
+    nb = sum(t["batches"] for t in times)
+    if served != len(reqs) or nb != len(batches):
+        fail(f"the server served {served} requests in {nb} batches, "
+             f"expected {len(reqs)} in {len(batches)}")
+    if launches != ver.encoder_layers * len(batches) or bwd:
+        fail(f"the server launched the forward kernel {launches} times and "
+             f"the backward {bwd} times over {len(batches)} batches, "
+             f"expected {ver.encoder_layers} a batch and none")
+    if not os.path.exists(os.path.join(queue, "out", "a-bad.error.txt")):
+        fail("the malformed request got no error file")
+
+    # every volume against a direct call on the same padded batch (exact)
+    # and against phases 4 and 4d's volumes of the viewpoint (1e-5)
+    model = build_model(ver, "cuda", seed=0)
+    vit = vit_for_ver(ver, VIT_PATCH, VIT_LAYERS, VIT_HEADS).init_weights(
+        torch.Generator().manual_seed(1)).cuda().eval()
+    direct = {"features": make_bev_only(model),
+              "images": make_bev_only(model, vit)}
+    exact_err = phase_err = 0.0
+    for ids, arrays in batches:
+        key = "images" if ids[0].startswith("i") else "features"
+        bev, _ = direct[key](*(torch.from_numpy(a).cuda() for a in arrays))
+        want = volumes_from_bev(bev.float().cpu().numpy(), ver)
+        for j, rid in enumerate(ids):
+            got = _response(queue, rid)["volume"]
+            exact_err = max(exact_err, float(np.abs(got - want[j]).max()))
+            ref = (image_vols if key == "images" else dense_vols)[
+                int(rid[1:])]
+            phase_err = max(phase_err, float(np.abs(got - ref).max()))
+    ok = exact_err == 0.0 and phase_err <= 1e-5
+    print(f"server: {served} requests ({SERVE_FEATURE_REQUESTS} feature, "
+          f"{SERVE_IMAGE_REQUESTS} image) + 1 malformed at batch_max "
+          f"{SERVE_BATCH} in {nb} batches, {launches} deform launches; "
+          f"volumes vs direct make_bev_only calls on the same padded "
+          f"batches: max_abs_err={exact_err:.3e} (exact); vs phases 4 and "
+          f"4d: max_abs_err={phase_err:.3e} (atol 1e-5) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        fail("served volumes disagree with the direct forward")
+    del model, vit, direct
+
+    rates = serve_rates(ver, feats, w2p, shift, images, dense_vols,
+                        image_vols, root, card)
+
+    # --occupancy at vocc.py width on phase 6's viewpoints
+    vocc = build_ver_config(load_config(
+        os.path.join(REPO, "configs/verformer/vocc.py")))
+    oq = os.path.join(root, "occ")
+    occ_reqs = {f"o{i}": {k: samples[i][k] for k in
+                          ("features", "world2pixel", "origin_shift")}
+                for i in range(SERVE_OCC_BATCH)}
+    _enqueue(oq, occ_reqs)
+    KERNEL.launches = 0
+    served = serve(_serve_args("configs/verformer/vocc.py", oq,
+                               occupancy=True, batch_max=SERVE_OCC_BATCH,
+                               max_requests=SERVE_OCC_BATCH))
+    occ_launches = KERNEL.launches
+    model = build_model(vocc, "cuda", seed=0)
+    (ids, arrays), = _served_batches(occ_reqs, SERVE_OCC_BATCH)
+    bev, labels = make_forward(model, vocc, occupancy=True)(
+        *(torch.from_numpy(a).cuda() for a in arrays))
+    labels = labels.cpu().numpy()
+    vols = volumes_from_bev(bev.float().cpu().numpy(), vocc)
+    same = served == SERVE_OCC_BATCH and occ_launches == vocc.encoder_layers
+    for j, rid in enumerate(ids):
+        got = _response(oq, rid)
+        same &= bool(np.array_equal(got["occupancy"], labels[j])
+                     and got["occupancy"].dtype == np.int32
+                     and np.array_equal(got["volume"], vols[j]))
+    print(f"server --occupancy (vocc.py, batch_max {SERVE_OCC_BATCH}): "
+          f"{served} requests, labels of {labels.shape[1]} voxels and "
+          f"volumes equal to a direct forward + decode_occupancy on the "
+          f"card, {occ_launches} deform launches "
+          f"{'ok' if same else 'FAIL'}")
+    if not same:
+        fail("the occupancy server disagrees with the direct forward")
+    shutil.rmtree(root)
+    return launches, rates
+
+
+def _request(inputs, w2p, shift, key, i):
+    return {key: inputs[i], "world2pixel": w2p[i], "origin_shift": shift[i]}
+
+
+def _serve_in_thread(args, times):
+    """``serve(args, times=times)`` on a thread of its own, while this
+    thread plays the clients; returns (thread, result): ``result`` gets
+    ``"served"``, or ``"error"`` when the server raised."""
+    import threading
+
+    from vln_ver_tpu_torch.serve import serve
+    result = {}
+
+    def run():
+        try:
+            result["served"] = serve(args, times=times)
+        except BaseException as e:  # handed to the client thread, raised
+            result["error"] = e
+
+    thread = threading.Thread(target=run, name="serve", daemon=True)
+    thread.start()
+    return thread, result
+
+
+def _await_served(times, n, thread, result, timeout_s=300.0):
+    """Wait until the server's claims have answered ``n`` requests; raises
+    the server's error, or fails, if it ends or stalls first."""
+    end = time.time() + timeout_s
+    while sum(t["requests"] for t in list(times)) < n:
+        if not thread.is_alive():
+            if "error" in result:
+                raise result["error"]
+            fail(f"the server stopped before answering {n} requests")
+        if time.time() > end:
+            fail(f"the server answered no {n} requests in {timeout_s} s")
+        time.sleep(0.002)
+
+
+def serve_rates(ver, feats, w2p, shift, images, dense_vols, image_vols,
+                root, card):
+    """Phase 10's rates: the server on its own thread, warmed by one full
+    batch of each kind, then a backlog of SERVE_RATE_REQUESTS requests
+    written at once (a share SERVE_RATE_IMAGE_SHARE of them image
+    requests; viewpoints drawn from phase 4's), then SERVE_LONE lone
+    requests of each kind, each sent when the last was answered.  Latency
+    runs from the rename that completes a client's write to its response
+    file's mtime.  Returns the numbers."""
+    import torch
+
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL
+
+    queue = os.path.join(root, "rates")
+    inbox, outbox = os.path.join(queue, "in"), os.path.join(queue, "out")
+    stage = os.path.join(root, "staged")
+    os.makedirs(stage)
+    kinds = {"f": (feats, "features"), "i": (images, "images")}
+    src = {}
+    for kind, (inputs, key) in kinds.items():
+        for i in range(N_VIEWPOINTS):
+            src[kind, i] = os.path.join(stage, f"{kind}{i:02d}.npz")
+            np.savez(src[kind, i], **_request(inputs, w2p, shift, key, i))
+    rng = np.random.default_rng(5)
+    drawn = [("i" if rng.random() < SERVE_RATE_IMAGE_SHARE else "f",
+              int(rng.integers(N_VIEWPOINTS)))
+             for _ in range(SERVE_RATE_REQUESTS)]
+    backlog = {}
+    for k, (kind, i) in enumerate(drawn):
+        backlog[f"r{k:04d}"] = os.path.join(stage, f"r{k:04d}.npz")
+        shutil.copyfile(src[kind, i], backlog[f"r{k:04d}"])
+    n_images = sum(kind == "i" for kind, _ in drawn)
+
+    # the warm batches: all written before the server starts, so its first
+    # two claims take the 8 feature requests, then the 8 image requests
+    _enqueue(queue, {f"w{kind}{j}": _request(inputs, w2p, shift, key, j)
+                     for kind, (inputs, key) in kinds.items()
+                     for j in range(SERVE_BATCH)})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    thread, result = _serve_in_thread(
+        _serve_args("configs/verformer/get_occ.py", queue, images=True),
+        times)
+    n_warm = 2 * SERVE_BATCH
+    _await_served(times, n_warm, thread, result)
+    if [t["batches"] for t in times] != [1, 1]:
+        fail(f"the warm-up took claims of {[t['requests'] for t in times]} "
+             f"requests, expected two claims of {SERVE_BATCH}")
+
+    KERNEL.launches = 0
+    arrive = {}
+    for rid, path in backlog.items():
+        os.replace(path, os.path.join(inbox, f"{rid}.npz"))
+        arrive[rid] = time.time()
+    _await_served(times, n_warm + SERVE_RATE_REQUESTS, thread, result)
+    launches = KERNEL.launches
+    claims = times[2:]
+    for j in range(SERVE_LONE):
+        for kind, (inputs, key) in kinds.items():
+            rid = f"z{kind}{j}"
+            _enqueue(queue, {rid: _request(inputs, w2p, shift, key, j)})
+            arrive[rid] = time.time()
+            _await_served(times, n_warm + SERVE_RATE_REQUESTS
+                          + len(arrive) - len(backlog), thread, result)
+    with open(os.path.join(inbox, "STOP"), "w"):
+        pass
+    thread.join(timeout=60)
+    if thread.is_alive():
+        fail("the server did not stop on in/STOP")
+    if "error" in result:
+        raise result["error"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    total = n_warm + SERVE_RATE_REQUESTS + 2 * SERVE_LONE
+    if result["served"] != total:
+        fail(f"the server served {result['served']} requests, expected "
+             f"{total}")
+
+    # the backlog's responses against phases 4 and 4d's volumes
+    done = {rid: os.path.getmtime(os.path.join(outbox, f"{rid}.npz"))
+            for rid in arrive}
+    err = 0.0
+    for (kind, i), rid in zip(drawn, backlog):
+        ref = (image_vols if kind == "i" else dense_vols)[i]
+        err = max(err, float(np.abs(_response(queue, rid)["volume"]
+                                    - ref).max()))
+    nb = sum(t["batches"] for t in claims)
+    if err > 1e-5 or launches != ver.encoder_layers * nb:
+        fail(f"the backlog's volumes are {err:.3e} from phases 4 and 4d's "
+             f"(atol 1e-5), or its {launches} deform launches are not "
+             f"{ver.encoder_layers} for each of its {nb} batches")
+    window = max(done[r] for r in backlog) - min(arrive[r] for r in backlog)
+    lat = np.asarray([done[r] - arrive[r] for r in backlog]) * 1e3
+    lone = {kind: float(np.median([1e3 * (done[f"z{kind}{j}"]
+                                          - arrive[f"z{kind}{j}"])
+                                   for j in range(SERVE_LONE)]))
+            for kind in kinds}
+    stages = {k: 1e3 * sum(t[k] for t in claims) / nb
+              for k in ("claim", "load", "upload", "forward", "copy",
+                        "write")}
+    forward_share = sum(t["forward"] for t in claims) / window
+    pad_share = 1.0 - SERVE_RATE_REQUESTS / (nb * SERVE_BATCH)
+    rate = SERVE_RATE_REQUESTS / window
+    print(f"server rates: a backlog of {SERVE_RATE_REQUESTS} requests "
+          f"({SERVE_RATE_REQUESTS - n_images} feature, {n_images} image) "
+          f"written at once after a warm batch of each kind, served in "
+          f"{window:.4f}s = {rate:.2f} requests/s at batch_max "
+          f"{SERVE_BATCH} ({len(claims)} claims, {nb} batches, "
+          f"{100 * pad_share:.1f}% of the rows padding); latency from the "
+          f"client's write to the response: median {np.median(lat):.2f} ms, "
+          f"max {lat.max():.2f} ms; max_abs_err vs phases 4 and 4d "
+          f"{err:.3e} (atol 1e-5); ms a batch: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
+          + f" (forward by CUDA events, {100 * forward_share:.1f}% of the "
+          f"window); a lone request on the idle server (poll 5 ms, median "
+          f"of {SERVE_LONE}): feature {lone['f']:.2f} ms, image "
+          f"{lone['i']:.2f} ms; peak device memory {peak:.1f} MiB, deform "
+          f"launches {launches} [{card}]")
+    return dict(serve_requests=SERVE_RATE_REQUESTS,
+                serve_image_requests=n_images,
+                serve_window_s=window, serve_requests_per_s=rate,
+                serve_latency_ms_median=float(np.median(lat)),
+                serve_latency_ms_max=float(lat.max()),
+                serve_lone_ms_features=lone["f"],
+                serve_lone_ms_images=lone["i"],
+                serve_claims=len(claims), serve_batches=nb,
+                serve_pad_share=pad_share,
+                serve_forward_share=forward_share,
+                serve_peak_mib=peak, serve_launches=launches,
+                **{f"serve_{k}_ms": v for k, v in stages.items()})
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+class _MemoryH5:
+    """The part of ``h5py.File`` that ``dump_volumes`` uses, in memory (the
+    card's machine need not have h5py): ``files[path][key]`` is a volume."""
+    files = {}
+
+    def __init__(self, path, mode="r"):
+        self.data = _MemoryH5.files.setdefault(path, {})
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.close()
+
+    def close(self):
+        pass
+
+    def __contains__(self, key):
+        return key in self.data
+
+    def __delitem__(self, key):
+        del self.data[key]
+
+    def create_dataset(self, name, data, **_):
+        self.data[name] = np.array(data)
+
+
+def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
+                   card):
+    """Phase 10b; returns the forward and backward launches of its mesh
+    dumps, mesh train step and mesh eval.  The lift runs on a view shard
+    of the world group (index 0 of 1), so its all-reduces of the slot sums
+    and hit counts, and of the sparse lift's overflow, run under NCCL."""
+    import types
+
+    import torch
+
+    from vln_ver_tpu_torch.agent.env import R2REnv
+    from vln_ver_tpu_torch.agent.policy import build_policy
+    from vln_ver_tpu_torch.agent.rollout import (episode_metrics,
+                                                 evaluate_batched,
+                                                 mean_metrics)
+    from vln_ver_tpu_torch.config import build_train_config, load_config
+    from vln_ver_tpu_torch.data.mp3d import collate
+    from vln_ver_tpu_torch.evaluation.runner import evaluate_model
+    from vln_ver_tpu_torch.get_occ import make_bev_only
+    from vln_ver_tpu_torch.models import build_model
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    from vln_ver_tpu_torch.parallel import multihost
+    from vln_ver_tpu_torch.parallel.mesh import ViewShard, make_mesh, replicate
+    from vln_ver_tpu_torch.ver_writer import dump_volumes
+
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    os.environ.update(env)
+    try:
+        dev = multihost.initialize_if_needed("cuda")
+        print(f"process group: backend {torch.distributed.get_backend()}, "
+              f"world {multihost.process_count()}, device {dev}")
+        mesh = make_mesh((1, 1))
+        views = ViewShard(torch.distributed.group.WORLD, 0, 1)
+        dataset = [dict(features=feats[i], world2pixel=w2p[i],
+                        origin_shift=shift[i], token=f"vp{i:02d}")
+                   for i in range(N_VIEWPOINTS)]
+        n_batches = -(-N_VIEWPOINTS // BATCH)
+        model = replicate(mesh, build_model(ver, dev, seed=0))
+        fwd = bwd = 0
+        # the dense lift (exact) and the sparse lift (phase 4b's bound)
+        for name, cfg, atol in (
+                ("dense", ver, 0.0),
+                ("sparse", dataclasses.replace(
+                    ver, sca_query_capacity=SPARSE_K), 1e-5)):
+            lift = build_model(cfg, dev, seed=0)
+            lift.load_state_dict(model.state_dict(), strict=True)
+            lift.shard_views(views)
+            path = f"mesh_{name}.hdf5"
+            KERNEL.launches = KERNEL_BWD.launches = 0
+            saved = sys.modules.get("h5py")
+            sys.modules["h5py"] = types.SimpleNamespace(File=_MemoryH5)
+            try:
+                res = dump_volumes(make_bev_only(lift), dataset, ver, path,
+                                   batch_size=BATCH, device=dev, mesh=mesh)
+            finally:
+                if saved is None:
+                    del sys.modules["h5py"]
+                else:
+                    sys.modules["h5py"] = saved
+            got = _MemoryH5.files.pop(path)
+            err = max(float(np.abs(got[f"vp{i:02d}"] - dense_vols[i]).max())
+                      for i in range(N_VIEWPOINTS))
+            ok = (res["written"] == N_VIEWPOINTS and res["sca_overflow"] == 0
+                  and err <= atol and not KERNEL_BWD.launches
+                  and KERNEL.launches == ver.encoder_layers * n_batches)
+            print(f"dump_volumes(mesh=make_mesh((1, 1))), {name} lift on a "
+                  f"view shard, under NCCL: {res['written']} volumes, "
+                  f"sca_overflow {res['sca_overflow']}, max_abs_err="
+                  f"{err:.3e} against phase 4's (atol {atol}), "
+                  f"{KERNEL.launches} deform launches "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"the {name} mesh dump disagrees with phase 4")
+            fwd += KERNEL.launches
+            del lift
+        del model
+
+        # one train --mesh 1 step on the view shard against phase 7's
+        # plain step
+        cfg = load_config(os.path.join(REPO, "configs/verformer/vocc.py"))
+        batch = int(cfg["data"]["samples_per_gpu"])
+        tc = build_train_config(cfg, len(samples) // batch)
+        host_batch = collate(samples[:batch])
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            plain = card_step(ver, tc, host_batch)
+            meshed = card_step(ver, tc, host_batch, mesh=mesh, views=views)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        hold_step("train --mesh 1 step on a view shard under NCCL vs the "
+                  "plain step (card)", meshed, plain, 1e-6, 1e-6, card)
+        fwd += meshed[3][0]
+        bwd += meshed[3][1]
+
+        # test --mesh 1: the rows gathered and the histograms summed
+        # through NCCL, against the one-process eval (phase 6's split)
+        classes = tuple(cfg["data"]["test"].get("classes", ()))
+        model = build_model(ver, dev, seed=0)
+        plain = evaluate_model(model, samples, occ_thresholds=(0.25,),
+                               batch_size=EVAL_BATCH, classes=classes)
+        KERNEL.launches = KERNEL_BWD.launches = 0
+        meshed = evaluate_model(model, samples, occ_thresholds=(0.25,),
+                                batch_size=EVAL_BATCH, classes=classes,
+                                mesh=mesh)
+        fwd += KERNEL.launches
+        bwd += KERNEL_BWD.launches
+        ok = meshed == plain and KERNEL.launches == ver.encoder_layers * (
+            -(-len(samples) // EVAL_BATCH))
+        print(f"evaluate_model(mesh=make_mesh((1, 1))) under NCCL: "
+              f"{len(samples)} viewpoints, {len(meshed)} metrics equal to "
+              f"the one-process eval's, {KERNEL.launches} deform launches "
+              f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the mesh eval disagrees with the one-process eval")
+        del model
+
+        # test_vln --mesh 1: the episodes' metrics gathered through NCCL
+        acfg, episodes, graphs, vols = agent_env
+        aenv = R2REnv(episodes[:AGENT_EPISODES], graphs, vols,
+                      max_nodes=acfg.max_nodes)
+        policy = build_policy(acfg, "cuda", seed=2)
+        one = episode_metrics(policy, aenv, acfg, batch_size=AGENT_BATCH)
+        per_ep = episode_metrics(policy, aenv, acfg, batch_size=AGENT_BATCH,
+                                 mesh=mesh)
+        means = evaluate_batched(policy, aenv, acfg, batch_size=AGENT_BATCH,
+                                 mesh=mesh)
+        ok = per_ep == one and means == mean_metrics(one)
+        print(f"episode_metrics / evaluate_batched(mesh=make_mesh((1, 1))) "
+              f"under NCCL: {len(per_ep)} episodes' metrics equal to the "
+              f"one-process run's {'ok' if ok else 'FAIL'}")
+        if not ok:
+            fail("the mesh agent eval disagrees with the one-process run")
+    finally:
+        multihost.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+    return fwd, bwd
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1995,7 +2557,9 @@ def main() -> None:
     extra.update(int8_upload(model, cpu_model, ver, feats, w2p, shift,
                              dense_vols, card))
     del cpu_model
-    extra.update(image_path(model, ver, w2p, shift, card))
+    image_extra, images, image_vols = image_path(model, ver, w2p, shift,
+                                                 card)
+    extra.update(image_extra)
 
     # -- phase 5: kernel timing ------------------------------------------
     H = W = ver.feat_h
@@ -2097,6 +2661,16 @@ def main() -> None:
     agent_train = agent_training(*agent_env, card)
     print(json.dumps({"agent_train": {**agent_train, "card": card}}))
 
+    # -- phase 10: the server on the card ----------------------------------
+    launches_serve, serve_numbers = serving(
+        ver, feats, w2p, shift, dense_vols, images, image_vols, samples,
+        card)
+    print(json.dumps({"serve": {**serve_numbers, "card": card}}))
+
+    # -- phase 10b: NCCL of world 1: mesh dumps, train, eval, agent eval ---
+    launches_mesh, bwd_launches_mesh = mesh_world_one(
+        ver, feats, w2p, shift, dense_vols, samples, agent_env, card)
+
     ms, eager_ms, plain_ms, bound_ms, bound_by, floor_ms = timing[
         "B=1 float32"]
     ms4, eager_ms4, plain_ms4, bound_ms4, _, floor_ms4 = timing[
@@ -2135,6 +2709,8 @@ def main() -> None:
         "launches_train_capacity": train_extra["fwd_capacity"],
         "launches_agent": agent["launches_agent"],
         "launches_agent_train": agent_train["launches_fwd"],
+        "launches_serve": launches_serve,
+        "launches_mesh": launches_mesh,
         "card": card,
     }, {
         "name": "deform_attn_2d_backward",
@@ -2172,6 +2748,8 @@ def main() -> None:
         "launches_train_capacity": train_extra["bwd_capacity"],
         "launches_agent": 0,
         "launches_agent_train": agent_train["launches_bwd"],
+        "launches_serve": 0,
+        "launches_mesh": bwd_launches_mesh,
         "card": card,
     }]}))
     print(f"chip_smoke total: {time.perf_counter() - T_START:.2f}s")

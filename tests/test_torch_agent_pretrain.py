@@ -232,7 +232,8 @@ def test_cli_chain_pretrain_train_test_vln(tmp_path):
 
 @pytest.mark.parametrize("cli", [pretrain_vln, train_vln])
 def test_trainer_clis_refuse_mesh_and_missing_cuda(tmp_path, cli):
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh the world (one process) cannot hold
+    with pytest.raises(ValueError, match="needs 2 processes"):
         cli.main(["--synthetic", "--mesh", "2", "--device", "cpu",
                   "--work-dir", str(tmp_path)])
     if not torch.cuda.is_available():

@@ -29,6 +29,7 @@ from vln_ver_tpu_torch.agent import policy as tpol
 from vln_ver_tpu_torch.agent import rollout as troll
 from vln_ver_tpu_torch.agent.memory import EpisodicMemory
 from vln_ver_tpu_torch.convert import policy_state_dict_from_jax
+from vln_ver_tpu_torch.parallel.mesh import Mesh
 from vln_ver_tpu_torch.utils.checkpoint import save_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -209,8 +210,9 @@ def test_sampled_rollouts_reproducible_and_unmasked(agents):
     with pytest.raises(ValueError, match="Generator"):
         troll.run_episodes_batched(a["tp"], env, [0, 1], a["tcfg"],
                                    greedy=False)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        troll.evaluate_batched(a["tp"], env, a["tcfg"], mesh=object())
+    with pytest.raises(ValueError, match="not divisible by mesh size 2"):
+        troll.evaluate_batched(a["tp"], env, a["tcfg"], batch_size=3,
+                               mesh=Mesh((2, 1), 0, 0))
 
 
 def test_sampling_follows_softmax():
@@ -295,7 +297,8 @@ def test_test_vln_cli_prints_jax_metrics(tmp_path, objects):
 
 def test_test_vln_cli_refuses_mesh_and_missing_cuda(tmp_path):
     from vln_ver_tpu_torch import test_vln
-    with pytest.raises(NotImplementedError, match="item 13"):
+    # a mesh the world (one process) cannot hold
+    with pytest.raises(ValueError, match="needs 2 processes"):
         test_vln.main(["--checkpoint", str(tmp_path), "--synthetic",
                        "--mesh", "2", "--device", "cpu"])
     if not torch.cuda.is_available():

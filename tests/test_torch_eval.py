@@ -31,6 +31,7 @@ from vln_ver_tpu_torch.config import build_ver_config, load_config
 from vln_ver_tpu_torch.data import (MP3DDataset, make_synthetic_dataset,
                                     synthetic_samples)
 from vln_ver_tpu_torch.evaluation import indoor_eval, ssc_metrics
+from vln_ver_tpu_torch.parallel.mesh import Mesh
 from vln_ver_tpu_torch.evaluation.runner import (evaluate_model,
                                                  occupancy_hists)
 
@@ -287,7 +288,8 @@ def test_cli_refuses_cuda_without_cuda_and_a_mesh(monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         test_cli.main([CONFIG, "--device", "cuda", "--synthetic"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh the world cannot hold, and a batch the mesh cannot split
+    with pytest.raises(ValueError, match="needs 2 processes"):
         test_cli.main([CONFIG, "--device", "cpu", "--mesh", "2,1"])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        evaluate_model(None, [], mesh=object())
+    with pytest.raises(ValueError, match="not divisible"):
+        evaluate_model(None, [], batch_size=3, mesh=Mesh((2, 1), 0, 0))

@@ -27,6 +27,7 @@ from vln_ver_tpu_torch import get_occ
 from vln_ver_tpu_torch.config import build_ver_config, load_config
 from vln_ver_tpu_torch.data import MP3DDataset
 from vln_ver_tpu_torch.models import build_model
+from vln_ver_tpu_torch.parallel.mesh import Mesh
 from vln_ver_tpu_torch.ver_writer import dump_volumes
 
 torch.set_num_threads(1)
@@ -188,9 +189,11 @@ def test_existing_keys_are_replaced(tmp_path):
 
 
 def test_unported_dump_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # a mesh dump whose batch the data ranks cannot split
+    with pytest.raises(ValueError, match="not divisible"):
         dump_volumes(None, [], build_ver_config(load_config(CONFIG)),
-                     str(tmp_path / "x.h5"), device="cpu", mesh=object())
+                     str(tmp_path / "x.h5"), device="cpu", batch_size=3,
+                     mesh=Mesh((2, 1), 0, 0))
 
 
 @pytest.mark.parametrize("cast", ["int8", "bfloat16", "float32"])

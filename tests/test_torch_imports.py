@@ -30,6 +30,9 @@ AGENT = ("agent/__init__.py", "agent/env.py", "agent/data.py",
          "agent/pretrain.py", "agent/cli_setup.py", "agent/crossmodal.py",
          "agent/update.py", "train_vln.py", "pretrain_vln.py",
          "convert_text_encoder.py", "convert_crossmodal.py")
+# the server and the multi-process modules
+PARALLEL = ("serve.py", "parallel/__init__.py", "parallel/mesh.py",
+            "parallel/multihost.py", "agent/parallel.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -65,6 +68,31 @@ def test_agent_modules_are_checked():
     assert set(AGENT) <= _checked()
 
 
+def test_parallel_modules_are_checked():
+    assert set(PARALLEL) <= _checked()
+
+
+def test_parallel_modules_import_without_jax_or_a_process_group():
+    """The server and the multi-process modules import with jax and the
+    JAX package made unimportable, and importing them brings up no
+    process group (the CLIs do, from torchrun's environment)."""
+    code = ("import sys\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'vln_ver_tpu'):\n"
+            "    sys.modules[m] = None\n"
+            "import torch.distributed as dist\n"
+            "import vln_ver_tpu_torch.serve, vln_ver_tpu_torch.parallel,"
+            " vln_ver_tpu_torch.parallel.mesh,"
+            " vln_ver_tpu_torch.parallel.multihost,"
+            " vln_ver_tpu_torch.agent.parallel\n"
+            "assert not dist.is_initialized()\n"
+            "print('ok')")
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT")}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
+
+
 def test_forbidden_names():
     assert _forbidden("vln_ver_tpu") and _forbidden("vln_ver_tpu.geometry")
     assert _forbidden("jax.numpy") and _forbidden("flax.linen")
@@ -88,7 +116,8 @@ def test_package_imports_without_h5py():
             " vln_ver_tpu_torch.train_vln, vln_ver_tpu_torch.pretrain_vln,"
             " vln_ver_tpu_torch.convert_text_encoder,"
             " vln_ver_tpu_torch.convert_crossmodal,"
-            " vln_ver_tpu_torch.agent.cli_setup; "
+            " vln_ver_tpu_torch.agent.cli_setup, vln_ver_tpu_torch.serve,"
+            " vln_ver_tpu_torch.parallel, vln_ver_tpu_torch.agent.parallel; "
             "from vln_ver_tpu_torch.data import synthetic_samples; "
             "synthetic_samples(1, 1, num_cams=1, feat_hw=2, feat_dim=4, "
             "occ_dims=(2, 4, 4)); print('ok')")

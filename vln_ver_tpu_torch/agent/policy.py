@@ -37,7 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.layers import Dense, LayerNorm
+from ..models.layers import Dense, Dropout, LayerNorm
+from ..parallel.mesh import global_mean
 from .attention import MultiHeadAttention
 from .memory import EpisodicMemory
 from .text import TextEncoder
@@ -95,7 +96,7 @@ class _FusionBlock(nn.Module):
         self.ln_ffn = LayerNorm(c, dt)
         self.fc1 = Dense(c, cfg.ffn_dim, dt)
         self.fc2 = Dense(cfg.ffn_dim, c, dt)
-        self.dropout = nn.Dropout(p)
+        self.dropout = Dropout(p)
 
     def forward(self, x, x_mask, text, text_mask):
         # a query row of an invalid node masks every key: flax's min-fill
@@ -245,7 +246,8 @@ def masked_grounding_ce(obj_logits: torch.Tensor,
     has = gt_obj >= 0
     glogp = torch.log_softmax(obj_logits, dim=-1)
     picked = torch.gather(glogp, 1, gt_obj.clamp(min=0).long()[:, None])[:, 0]
-    return -torch.where(has, picked, 0.0).sum() / has.sum().clamp(min=1)
+    # over the global batch's grounded steps under a data-parallel update
+    return global_mean(-torch.where(has, picked, 0.0).sum(), has.sum())
 
 
 @contextlib.contextmanager

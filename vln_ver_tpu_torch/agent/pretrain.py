@@ -37,6 +37,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..models.layers import Dense, LayerNorm
+from ..parallel.mesh import draw_rows, global_mean
 from .attention import MultiHeadAttention
 from .env import R2REnv
 from .memory import EpisodicMemory, memory_from_arrays
@@ -60,11 +61,15 @@ def mask_tokens(generator: torch.Generator, tokens: torch.Tensor,
     is_real = tokens > 0
     for sid in special_ids:
         is_real &= tokens != sid
-    sel = (torch.rand(shape, generator=generator, device=dev)
-           < mask_prob) & is_real
-    op = torch.rand(shape, generator=generator, device=dev)
-    rand_tok = torch.randint(2, vocab_size, shape, generator=generator,
-                             device=dev, dtype=tokens.dtype)
+    # drawn for the global batch under a data-parallel update
+    sel = draw_rows(lambda s: torch.rand(s, generator=generator, device=dev),
+                    shape) < mask_prob
+    sel &= is_real
+    op = draw_rows(lambda s: torch.rand(s, generator=generator, device=dev),
+                   shape)
+    rand_tok = draw_rows(lambda s: torch.randint(
+        2, vocab_size, s, generator=generator, device=dev,
+        dtype=tokens.dtype), shape)
     masked = torch.where(sel & (op < 0.8), mask_id, tokens)
     masked = torch.where(sel & (op >= 0.8) & (op < 0.9), rand_tok, masked)
     return masked, tokens, sel
@@ -114,23 +119,26 @@ class VLNPretrainModel(nn.Module):
                           batch["cur_slot"], vol_tokens=vol_tokens,
                           **obj_kw)
         logp = torch.log_softmax(out.logits, dim=-1)
-        sap = -torch.gather(logp, 1,
-                            batch["teacher"].long()[:, None]).mean()
+        # means over the global batch under a data-parallel update
+        teacher_logp = torch.gather(logp, 1,
+                                    batch["teacher"].long()[:, None])
+        sap = global_mean(-teacher_logp.sum(), teacher_logp.numel())
 
         logits = self.mlm_logits(masked_tokens, text_mask, batch["volume"],
                                  vol_tokens=vol_tokens)
         lp = torch.log_softmax(logits, dim=-1)
         nll = -torch.gather(lp, -1, mlm_targets.long()[..., None])[..., 0]
-        mlm = (torch.where(mlm_mask, nll, 0.0).sum()
-               / mlm_mask.sum().clamp(min=1))
+        mlm = global_mean(torch.where(mlm_mask, nll, 0.0).sum(),
+                          mlm_mask.sum())
 
         losses = dict(sap=sap, mlm=mlm)
         if out.obj_logits is not None and "gt_obj" in batch:
             losses["og"] = masked_grounding_ce(out.obj_logits,
                                                batch["gt_obj"])
         if "state_targets" in batch:
-            losses["vse"] = torch.mean(
-                (out.state_pred - batch["state_targets"]) ** 2)
+            losses["vse"] = global_mean(
+                ((out.state_pred - batch["state_targets"]) ** 2).sum(),
+                batch["state_targets"].numel())
         return losses
 
 

@@ -32,13 +32,13 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from ..parallel.mesh import global_mean
+from ..parallel.multihost import allgather_objects, shard_indices
 from .env import R2REnv
 from .memory import memory_from_arrays
 from .policy import (PolicyConfig, VLNPolicy, dropout_off,
                      masked_grounding_ce)
 
-_MESH_TODO = ("mesh=: the agent's device mesh is not ported yet (ROADMAP "
-              "Queue 1 item 13, multi-GPU)")
 _POLICY_KEYS = ("instruction", "volume", "cur_pos", "cur_slot", "obj_feats",
                 "obj_valid")
 
@@ -136,7 +136,7 @@ def run_episode(policy: VLNPolicy, env: R2REnv, ep_idx: int,
 def run_episodes_batched(policy: VLNPolicy, env: R2REnv, ep_idxs,
                          cfg: PolicyConfig, greedy: bool = True,
                          generator: Optional[torch.Generator] = None,
-                         collect_teacher: bool = False, mesh=None,
+                         collect_teacher: bool = False,
                          times: Optional[Dict] = None):
     """Lockstep-batched rollouts: one policy call per step for B episodes
     (the policy is row-independent, so per-episode results match
@@ -147,8 +147,6 @@ def run_episodes_batched(policy: VLNPolicy, env: R2REnv, ep_idxs,
     observation, outputs ignored).  The instruction features of the first
     step are passed back in at every later step.  Returns (metrics_list,
     traces_list) parallel to ``ep_idxs``."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
     if not greedy and generator is None:
         raise ValueError("sampled rollout (greedy=False) requires a "
                          "torch.Generator")
@@ -194,23 +192,40 @@ def run_episodes_batched(policy: VLNPolicy, env: R2REnv, ep_idxs,
 def episode_metrics(policy: VLNPolicy, env: R2REnv, cfg: PolicyConfig,
                     limit: Optional[int] = None,
                     batch_size: Optional[int] = None,
-                    times: Optional[Dict] = None) -> List[Dict[str, float]]:
+                    times: Optional[Dict] = None,
+                    mesh=None) -> List[Dict[str, float]]:
     """Per-episode greedy metrics of the first ``limit`` episodes: one
     episode at a time, or lockstep batches of ``batch_size``, the short
     final batch padded by repeating its last episode (padding rows'
-    metrics are dropped)."""
+    metrics are dropped).
+
+    With ``mesh`` (an ``(N, 1)`` ``parallel.mesh.Mesh``; every rank calls
+    this) the ranks split the episodes in contiguous blocks, each running
+    lockstep batches of ``batch_size / N`` over its block, and every rank
+    gets every episode's metrics, in episode order."""
     n = min(len(env.episodes), limit or len(env.episodes))
+    episodes = range(n)
+    if mesh is not None:
+        if batch_size is None or batch_size % mesh.data_size:
+            raise ValueError(f"batch_size {batch_size} not divisible by "
+                             f"mesh size {mesh.data_size}")
+        batch_size //= mesh.data_size
+        episodes = shard_indices(n, mesh.data_index, mesh.data_size)
     if batch_size is None:
-        return [run_episode(policy, env, i, cfg, greedy=True,
-                            times=times)[0] for i in range(n)]
-    out = []
-    for lo in range(0, n, batch_size):
-        idxs = list(range(lo, min(lo + batch_size, n)))
-        real = len(idxs)
-        idxs += [idxs[-1]] * (batch_size - real)
-        metrics, _ = run_episodes_batched(policy, env, idxs, cfg,
-                                          greedy=True, times=times)
-        out.extend(metrics[:real])
+        out = [run_episode(policy, env, i, cfg, greedy=True,
+                           times=times)[0] for i in episodes]
+    else:
+        out = []
+        for lo in range(0, len(episodes), batch_size):
+            idxs = list(episodes[lo:lo + batch_size])
+            real = len(idxs)
+            idxs += [idxs[-1]] * (batch_size - real)
+            metrics, _ = run_episodes_batched(policy, env, idxs, cfg,
+                                              greedy=True, times=times)
+            out.extend(metrics[:real])
+    if mesh is not None:
+        out = [m for part in allgather_objects(out, mesh.data_group)
+               for m in part]
     return out
 
 
@@ -237,11 +252,11 @@ def evaluate_batched(policy: VLNPolicy, env: R2REnv, cfg: PolicyConfig,
                      mesh=None,
                      times: Optional[Dict] = None) -> Dict[str, float]:
     """:func:`evaluate` through lockstep batches of ``batch_size``
-    episodes; per-episode metrics are :func:`evaluate`'s."""
-    if mesh is not None:
-        raise NotImplementedError(_MESH_TODO)
+    episodes, split over ``mesh``'s ranks where given
+    (:func:`episode_metrics`); per-episode metrics are :func:`evaluate`'s."""
     return mean_metrics(episode_metrics(policy, env, cfg, limit,
-                                        batch_size=batch_size, times=times))
+                                        batch_size=batch_size, times=times,
+                                        mesh=mesh))
 
 
 def imitation_step_loss(policy: VLNPolicy, batch: Dict,
@@ -265,10 +280,12 @@ def imitation_step_loss(policy: VLNPolicy, batch: Dict,
                      batch["volume"], batch["memory"], batch["cur_pos"],
                      batch["cur_slot"], **obj_kw)
     logp = torch.log_softmax(out.logits, dim=-1)
-    nll = -torch.gather(logp, 1, batch["teacher"].long()[:, None]).mean()
+    # means over the global batch under a data-parallel update
+    teacher_logp = torch.gather(logp, 1, batch["teacher"].long()[:, None])
+    nll = global_mean(-teacher_logp.sum(), teacher_logp.numel())
     zero = nll.new_zeros(())
-    aux = (zero if state_targets is None
-           else torch.mean((out.state_pred - state_targets) ** 2))
+    aux = (zero if state_targets is None else global_mean(
+        ((out.state_pred - state_targets) ** 2).sum(), state_targets.numel()))
     ground = zero
     if out.obj_logits is not None and "gt_obj" in batch:
         ground = masked_grounding_ce(out.obj_logits, batch["gt_obj"])

@@ -29,7 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..models.layers import Dense, LayerNorm
+from ..models.layers import Dense, Dropout, LayerNorm
 from .attention import MultiHeadAttention
 
 
@@ -50,7 +50,7 @@ class TextEncoder(nn.Module):
         if arch == "bert":
             self.type_embed = nn.Parameter(torch.empty(2, embed_dims))
         self.embed_norm = LayerNorm(embed_dims, dtype)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
         for i in range(num_layers):
             self.add_module(f"ln1_{i}", LayerNorm(embed_dims, dtype))
             self.add_module(f"attn_{i}", MultiHeadAttention(

@@ -17,6 +17,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.mesh import allreduce_grads, data_parallel, mean_over_data
 from ..train.state import TrainConfig, TrainState, create_train_state
 
 CLIP_NORM = 40.0
@@ -42,16 +43,28 @@ def mark(stages: Optional[List], name: str) -> None:
 
 def update(state: TrainState,
            loss_fn: Callable[[], Tuple[torch.Tensor, Dict]],
-           stages: Optional[List] = None):
+           stages: Optional[List] = None, mesh=None):
     """``loss_fn() -> (total, parts)``, its backward, the clip and one AdamW
     step; returns (total, parts, the gradient's global norm before the
     clip), as tensors.  ``stages`` gathers the ends of ``"forward"``,
-    ``"backward"`` and ``"optimizer"`` (:func:`mark`)."""
+    ``"backward"`` and ``"optimizer"`` (:func:`mark`).
+
+    With ``mesh`` (an ``(N, 1)`` ``parallel.mesh.Mesh``) the batch behind
+    ``loss_fn`` is this rank's rows of the global batch: the loss runs
+    under ``parallel.mesh.data_parallel`` (global means, masks drawn for
+    the global batch), the gradients are averaged over the ranks before
+    the clip, and the returned losses are the global batch's."""
     state.optimizer.zero_grad(set_to_none=True)
-    total, parts = loss_fn()
-    mark(stages, "forward")
-    total.backward()
+    with data_parallel(mesh):
+        total, parts = loss_fn()
+        mark(stages, "forward")
+        total.backward()
     mark(stages, "backward")
+    if mesh is not None:
+        allreduce_grads(mesh, state.model.parameters())
     gnorm = state.apply_gradients()
     mark(stages, "optimizer")
-    return total.detach(), {k: v.detach() for k, v in parts.items()}, gnorm
+    keys = list(parts)
+    losses = mean_over_data(mesh, torch.stack(
+        [total.detach()] + [parts[k].detach() for k in keys]))
+    return losses[0], dict(zip(keys, losses[1:].unbind())), gnorm

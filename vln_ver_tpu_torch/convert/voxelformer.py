@@ -187,7 +187,7 @@ def state_dict_from_jax(params: Mapping, cfg: VERConfig
     if cfg.use_temporal_self_attn:
         raise NotImplementedError(
             "temporal (TSA) configs are not ported yet (ROADMAP Queue 1, "
-            "slice 5)")
+            "item 11)")
     if "params" in params and len(params) == 1:
         params = params["params"]
     leaves = _flatten(params)

@@ -1,5 +1,5 @@
 """The evaluation loop: occupancy SSC metrics and indoor detection mAP
-(PyTorch port of ``vln_ver_tpu/evaluation/runner.py``, single process).
+(PyTorch port of ``vln_ver_tpu/evaluation/runner.py``).
 
 Per batch the model runs on its device, the last decoder layer's boxes
 (and layouts) are decoded there, and the occupancy logits are decoded and
@@ -18,6 +18,8 @@ import torch
 from ..coders import DecodedBoxes, decode_boxes, decode_layouts
 from ..data.mp3d import iterate_batches
 from ..occupancy import decode_occupancy, occupancy_num_classes
+from ..parallel import multihost
+from ..parallel.mesh import parse_eval_mesh, shard_views
 from .indoor_eval import box3d_iou, indoor_eval
 from .ssc_metrics import SSCMetrics, confusion_hist_device
 
@@ -58,6 +60,15 @@ def _pad_rows(a: np.ndarray, rows: int) -> np.ndarray:
     return np.concatenate([a, np.repeat(a[-1:], rows - a.shape[0], 0)])
 
 
+def _gather_rows(rows, n_fields: int, per: int, group):
+    """Per-sample tuples of ``n_fields`` arrays from every rank of
+    ``group``, in (rank, index) order; every rank enters every gather."""
+    fields = [multihost.allgather_results(
+        np.stack([r[f] for r in rows]) if rows else np.zeros((0,)), per,
+        group) for f in range(n_fields)]
+    return list(zip(*fields))
+
+
 def evaluate_model(model, dataset, occ_thresholds: Sequence[float] = (0.25,),
                    limit: Optional[int] = None, batch_size: int = 1,
                    classes: Sequence[str] = (),
@@ -74,19 +85,29 @@ def evaluate_model(model, dataset, occ_thresholds: Sequence[float] = (0.25,),
     ``mAR_*`` and per-class APs, ``layout_iou`` where layouts are
     predicted, and per occupancy threshold ``miou``, ``iou`` (percent),
     ``occ_precision``, ``occ_recall`` (suffixed ``@thr`` when there are
-    several thresholds), plus ``sca_overflow``."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh eval (data/view sharding over several cards) is not "
-            "ported yet (ROADMAP Queue 1, item 13)")
-    if (torch.distributed.is_available() and torch.distributed.is_initialized()
-            and torch.distributed.get_world_size() > 1):
-        raise NotImplementedError(
-            "multi-process eval (sharded split, gathered results) is not "
-            "ported yet (ROADMAP Queue 1, item 13)")
+    several thresholds), plus ``sca_overflow``.
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; the default under a process group
+    of more than one process is the world's ``(world, 1)`` grid; every
+    process calls this function) splits the split over the data ranks in contiguous blocks,
+    each taking batches of ``batch_size / D`` (which must divide), and
+    each viewpoint's cameras over the view ranks (the model is
+    ``shard_views``-ed here); the per-sample rows are gathered and the
+    histograms summed over the data group, so every rank returns the
+    metrics of the whole split."""
+    if mesh is None:
+        mesh = parse_eval_mesh(None)
+    if mesh is not None and batch_size % mesh.data_size:
+        raise ValueError(f"batch_size {batch_size} not divisible by the "
+                         f"mesh's data size {mesh.data_size}")
     cfg = model.cfg
     device = next(model.parameters()).device
     n = min(len(dataset), limit or len(dataset))
+    indices = range(n)
+    if mesh is not None:
+        batch_size //= mesh.data_size
+        indices = multihost.shard_indices(n, mesh.data_index, mesh.data_size)
+        model.shard_views(mesh.views)
     n_occ_cls = occupancy_num_classes(cfg.occupancy_classes,
                                       cfg.occ_loss_type)
     ssc = {thr: SSCMetrics(n_occ_cls) for thr in occ_thresholds}
@@ -97,8 +118,10 @@ def evaluate_model(model, dataset, occ_thresholds: Sequence[float] = (0.25,),
     was_training = model.training
     model.eval()
 
-    for batch in iterate_batches(dataset, batch_size, indices=range(n)):
+    for batch in iterate_batches(dataset, batch_size, indices=indices):
         bsz = batch["features"].shape[0]
+        if mesh is not None:
+            batch = shard_views(mesh, batch)
         inputs = [batch[k] for k in ("features", "world2pixel",
                                      "origin_shift")]
         if bsz < batch_size:
@@ -150,6 +173,16 @@ def evaluate_model(model, dataset, occ_thresholds: Sequence[float] = (0.25,),
                     np.asarray(batch["gt_valid"][i], bool)))
                 pred_rows.append(tuple(f[i] for f in fields))
     model.train(was_training)
+    if mesh is not None and mesh.distributed:
+        per = multihost.shard_size(n, mesh.data_size)
+        group = mesh.data_group
+        gt_rows = _gather_rows(gt_rows, 3, per, group)
+        pred_rows = _gather_rows(pred_rows, 4, per, group)
+        layout_rows = list(multihost.allgather_results(
+            np.asarray(layout_rows, np.float64), per, group))
+        for thr in occ_thresholds:
+            ssc[thr].hist = multihost.allreduce_sum(ssc[thr].hist, group)
+        overflow = multihost.allreduce_max(overflow, mesh.world_group)
 
     metrics: Dict[str, float] = {"sca_overflow": float(overflow)}
     if gt_rows:

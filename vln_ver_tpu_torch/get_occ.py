@@ -20,8 +20,14 @@ the weights are random from seed 0.  ``--from-images`` uploads the raw
 uint8 views and runs the ViT frontend, the CLS strip and the lift in one
 call on the card; ``--vit-checkpoint`` takes an HF ``ViTModel`` state dict,
 and without it the ViT's weights are random from seed 1 (a smoke run
-only).  The JAX tool's ``--mesh`` is not ported yet (ROADMAP Queue 1, item
-6c with item 13).
+only).
+
+Over several cards, one process each (torchrun's environment):
+  torchrun --nproc-per-node N -m vln_ver_tpu_torch.get_occ CONFIG ... \
+      --mesh D,V
+splits the viewpoints over D data groups and each viewpoint's cameras over
+V view ranks (``parallel.mesh``); view rank 0 of data group d writes
+``<out>.shard<d>``.  ``--batch-size`` must divide by D.
 """
 
 from __future__ import annotations
@@ -73,6 +79,9 @@ def parse_args(argv=None):
     p.add_argument("--vit-patch-size", type=int, default=16)
     p.add_argument("--vit-layers", type=int, default=12)
     p.add_argument("--vit-heads", type=int, default=12)
+    p.add_argument("--mesh", default=None,
+                   help="'D[,V]': data x view process grid over the world "
+                        "(torchrun); default D = the world, V = 1")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain path")
     return p.parse_args(argv)
@@ -120,10 +129,13 @@ def main(argv=None) -> dict:
     from .data.mp3d import MP3DDataset
     from .data.synthetic import make_synthetic_dataset
     from .models.detector import build_model
+    from .parallel import multihost
+    from .parallel.mesh import parse_eval_mesh, replicate
     from .runtime import resolve_device, set_fp32_precision
     from .ver_writer import dump_volumes
 
-    device = resolve_device(args.device)
+    device = multihost.initialize_if_needed(resolve_device(args.device))
+    mesh = parse_eval_mesh(args.mesh)
     cfg = apply_cfg_options(load_config(args.config), args.cfg_options)
     ver = build_ver_config(cfg)
     set_fp32_precision(ver.dtype)
@@ -154,16 +166,13 @@ def main(argv=None) -> dict:
         if not args.synthetic:
             raise FileNotFoundError(ann)
         os.makedirs(root or "data/mp3d", exist_ok=True)
-        ann = make_synthetic_dataset(root or "data/mp3d", split="forall",
-                                     num_cams=ver.num_cams,
-                                     feat_hw=ver.feat_h,
-                                     feat_dim=ver.in_channels,
-                                     occ_dims=(ver.occ_zdim, ver.occ_ydim,
-                                               ver.occ_xdim),
-                                     pc_range=ver.pc_range,
-                                     image_hw=((image_size, image_size)
-                                               if args.from_images
-                                               else None))
+        ann = multihost.run_once(lambda: make_synthetic_dataset(
+            root or "data/mp3d", split="forall", num_cams=ver.num_cams,
+            feat_hw=ver.feat_h, feat_dim=ver.in_channels,
+            occ_dims=(ver.occ_zdim, ver.occ_ydim, ver.occ_xdim),
+            pc_range=ver.pc_range,
+            image_hw=((image_size, image_size) if args.from_images
+                      else None)))
     dataset = MP3DDataset(ann, root, num_cams=ver.num_cams,
                           feat_hw=ver.feat_h, voxel_num=ver.voxel_num,
                           occupancy_classes=ver.occupancy_classes,
@@ -190,6 +199,14 @@ def main(argv=None) -> dict:
                   "(smoke only)")
             vit.init_weights(torch.Generator().manual_seed(1))
         vit = vit.to(device).eval()
+    if mesh is not None:
+        # rank 0's weights everywhere; each view rank lifts its cameras
+        replicate(mesh, model).shard_views(mesh.views)
+        if vit is not None:
+            replicate(mesh, vit)
+        if multihost.process_count() > 1:
+            # one HDF5 file a data group (no concurrent writers)
+            savename = f"{savename}.shard{mesh.data_index}"
 
     n = min(len(dataset), args.limit or len(dataset))
     try:
@@ -199,7 +216,7 @@ def main(argv=None) -> dict:
                            indices=range(n), device=device,
                            input_cast=args.upload_dtype,
                            input_key=("images" if args.from_images
-                                      else "features"))
+                                      else "features"), mesh=mesh)
     finally:
         dataset.close()
     print(f"wrote {res['written']} VER volumes to {savename}")

@@ -26,10 +26,11 @@ from typing import Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.distributed.nn.functional import all_reduce
 
 from ..ops.deform_attn import voxel_deform_attn_3d
 from ..ops.deform_cuda import ms_deform_attn_2d_fused
-from .layers import Dense
+from .layers import Dense, Dropout
 
 
 def _offset_grid_init_2d(num_heads: int, num_levels: int,
@@ -172,7 +173,12 @@ class SpatialCrossAttention(nn.Module):
     camera sum.  Equal to the dense path, term for term, whenever no
     camera sees more than K queries; beyond K the highest-index visible
     queries are dropped, which the transformer's ``sca_overflow``
-    reports."""
+    reports.
+
+    With ``views`` (a ``parallel.mesh.ViewShard``) the inputs hold this
+    rank's cameras only, and the fp32 slot sum and the hit count are
+    all-reduced over the view group before the divide: every view rank
+    gets the whole lift."""
 
     def __init__(self, embed_dims: int = 768, num_heads: int = 8,
                  num_levels: int = 1, num_points: int = 8,
@@ -184,7 +190,9 @@ class SpatialCrossAttention(nn.Module):
         self.deformable_attention = CamDeformableAttention(
             embed_dims, num_heads, num_levels, num_points, dtype)
         self.output_proj = Dense(embed_dims, embed_dims, dtype)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
+        # a parallel.mesh.ViewShard when the cameras are split over ranks
+        self.views = None
 
     def forward(self, query: torch.Tensor, value: torch.Tensor,
                 reference_points_cam: torch.Tensor, bev_mask: torch.Tensor,
@@ -228,7 +236,16 @@ class SpatialCrossAttention(nn.Module):
             slots = torch.sum(attn_out * qmask[..., None].to(attn_out.dtype),
                               dim=1, dtype=torch.float32)      # (B, nq, C)
         # per-query camera hit count (spatial_cross_attention.py:170-173)
-        count = qmask.float().sum(dim=1).clamp_min(1.0)
+        count = qmask.float().sum(dim=1)
+        if self.views is not None:
+            # this rank's cameras only: the slot sums and hit counts of the
+            # view group's cameras add up to the whole sum, in one
+            # autograd-aware all-reduce (its backward sums the slots'
+            # gradients over the group)
+            both = all_reduce(torch.cat([slots, count[..., None]], dim=-1),
+                              group=self.views.group)
+            slots, count = both[..., :-1], both[..., -1].detach()
+        count = count.clamp_min(1.0)
         slots = (slots / count[..., None]).to(self.dtype)
         return self.dropout(self.output_proj(slots)) + residual
 
@@ -256,7 +273,7 @@ class VoxelDeformableAttention3D(nn.Module):
         self.attention_weights = Dense(
             embed_dims, num_heads * num_levels * num_points)
         self.output_proj = Dense(embed_dims, embed_dims, dtype)
-        self.dropout = nn.Dropout(dropout_rate)
+        self.dropout = Dropout(dropout_rate)
 
     @torch.no_grad()
     def init_sampling(self) -> None:
@@ -315,7 +332,7 @@ class _PackedAttention(nn.Module):
             torch.empty(3 * embed_dims, embed_dims))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * embed_dims))
         self.out_proj = Dense(embed_dims, embed_dims, dtype)
-        self.attn_drop = nn.Dropout(dropout)
+        self.attn_drop = Dropout(dropout)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -361,7 +378,7 @@ class MultiheadAttention(nn.Module):
                  dropout: float = 0.1, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.attn = _PackedAttention(embed_dims, num_heads, dropout, dtype)
-        self.dropout_layer = nn.Dropout(dropout)
+        self.dropout_layer = Dropout(dropout)
 
     def forward(self, query, key=None, value=None, query_pos=None,
                 key_pos=None):

@@ -13,8 +13,8 @@ import torch
 from torch import nn
 
 from ..runtime import fp32_precision
-from .attention import (CamDeformableAttention, VoxelDeformableAttention3D,
-                        _PackedAttention)
+from .attention import (CamDeformableAttention, SpatialCrossAttention,
+                        VoxelDeformableAttention3D, _PackedAttention)
 from .config import VERConfig
 from .head import ClsBranch, Embedding, VoxelFormerOccupancyHead
 from .layers import ConvTranspose3d, Dense
@@ -51,6 +51,17 @@ class VoxelFormer(nn.Module):
                 m.init_sampling()
             elif isinstance(m, ClsBranch):
                 m.init_prior()
+        return self
+
+    def shard_views(self, views) -> "VoxelFormer":
+        """Split the lift's cameras over ranks: ``views`` is a
+        ``parallel.mesh.ViewShard`` (None: every camera here).  The inputs
+        then hold this rank's contiguous block of cameras, and the lift's
+        camera sums are all-reduced over the view group."""
+        self.pts_bbox_head.transformer.views = views
+        for m in self.modules():
+            if isinstance(m, SpatialCrossAttention):
+                m.views = views
         return self
 
     def forward(self, features: torch.Tensor, world2pixel: torch.Tensor,

@@ -17,7 +17,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .attention import SpatialCrossAttention
 from .config import VERConfig
-from .layers import Dense, LayerNorm
+from .layers import Dense, Dropout, LayerNorm
 
 
 class FFN(nn.Module):
@@ -31,9 +31,9 @@ class FFN(nn.Module):
         super().__init__()
         self.layers = nn.Sequential(
             nn.Sequential(Dense(embed_dims, feedforward_dim, dtype),
-                          nn.ReLU(), nn.Dropout(dropout_rate)),
+                          nn.ReLU(), Dropout(dropout_rate)),
             Dense(feedforward_dim, embed_dims, dtype),
-            nn.Dropout(dropout_rate))
+            Dropout(dropout_rate))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layers(x) + x
@@ -47,7 +47,7 @@ class VoxelEncoderLayer(nn.Module):
         if cfg.use_temporal_self_attn:
             raise NotImplementedError(
                 "temporal self-attention is not ported yet (ROADMAP "
-                "Queue 1, slice 5)")
+                "Queue 1, item 11)")
         self.attentions = nn.ModuleList([SpatialCrossAttention(
             cfg.embed_dims, cfg.num_heads, cfg.num_levels,
             cfg.sca_num_points, cfg.dtype, cfg.sca_query_capacity,

@@ -69,7 +69,7 @@ class _UniformTable(Embedding):
 class VoxelLearnedPositionalEncoding(nn.Module):
     """Learned row, column and z embeddings (voxel_positional_embedding.py:
     10-79).  Inert on the active path: only temporal self-attention reads
-    it, which the port does not have yet (ROADMAP Queue 1, slice 5); it is
+    it, which the port does not have yet (ROADMAP Queue 1, item 11); it is
     kept so that reference checkpoints load strictly."""
 
     def __init__(self, cfg: VERConfig):

@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import draw_rows
+
 
 class Dense(nn.Module):
     """``y = x @ weight.T + bias`` in ``dtype``; weight is (out, in) as in
@@ -39,6 +41,22 @@ class Dense(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+
+
+class Dropout(nn.Dropout):
+    """``nn.Dropout`` (active in ``train()``, scaled by ``1 / keep``) whose
+    keep mask is an explicit ``bernoulli_`` draw of the default generator
+    of the input's device, made for the whole batch: inside
+    ``parallel.mesh.data_parallel`` each rank draws the global batch's mask
+    and takes its rows, the mask of the one-process run."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = 1.0 - self.p
+        mask = draw_rows(lambda shape: torch.empty(
+            shape, dtype=x.dtype, device=x.device).bernoulli_(keep), x.shape)
+        return x * (mask / keep)
 
 
 class LayerNorm(nn.LayerNorm):

@@ -11,6 +11,7 @@ regression branches (reference names: ``pts_bbox_head.reg_branches``).
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
 from .. import geometry
@@ -44,11 +45,13 @@ class VoxelTransformer(nn.Module):
         self.level_embeds = nn.Parameter(
             torch.empty(cfg.num_levels, cfg.embed_dims))
         self.encoder = VoxelEncoder(cfg)
+        # a parallel.mesh.ViewShard when the cameras are split over ranks
+        self.views = None
         if not cfg.only_occ:
             if cfg.decoder_on_bev:
                 raise NotImplementedError(
                     "decoder_on_bev (voxel-to-BEV mlp/pool before the "
-                    "decoder) is not ported yet (ROADMAP Queue 1, slice 5)")
+                    "decoder) is not ported yet (ROADMAP Queue 1, item 11)")
             self.decoder = VoxelDetectionDecoder(cfg)
             self.reference_points = Dense(cfg.embed_dims, 3)
 
@@ -76,12 +79,17 @@ class VoxelTransformer(nn.Module):
           the device: nonzero means the sparse lift dropped queries, and
           the callers (get_occ, test, train) fail on it.  The dense lift
           drops nothing: the constant 0.
+        With ``views`` the inputs hold this rank's block of cameras, and
+        the worst slot is the view group's.
         """
         cfg = self.cfg
         b, num_cams, fh, fw, c = features.shape
         dt = cfg.dtype
+        # a view rank holds cameras [lo, lo + num_cams) of the viewpoint
+        lo = 0 if self.views is None else self.views.index * num_cams
         value = features.reshape(b, num_cams, fh * fw, c).to(dt)
-        value = value + self.cams_embeds[None, :, None, :].to(dt)
+        value = value + self.cams_embeds[None, lo:lo + num_cams, None,
+                                         :].to(dt)
         value = value + self.level_embeds[None, None, 0:1, :].to(dt)
 
         ref3d = geometry.voxel_reference_points(
@@ -96,8 +104,12 @@ class VoxelTransformer(nn.Module):
         cap = cfg.sca_query_capacity
         overflow = 0
         if cap and cap < mask.shape[2]:
-            visible = mask.any(dim=-1).sum(dim=-1)             # (B, cams)
-            overflow = (visible.max() - cap).clamp_min(0)
+            visible = mask.any(dim=-1).sum(dim=-1).max()  # worst slot
+            if self.views is not None:
+                visible = visible.clone()
+                dist.all_reduce(visible, op=dist.ReduceOp.MAX,
+                                group=self.views.group)
+            overflow = (visible - cap).clamp_min(0)
 
         embed = self.encoder(bev_queries, value, cam_xy, mask, ((fh, fw),))
         return embed, overflow

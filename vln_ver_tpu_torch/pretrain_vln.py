@@ -18,6 +18,11 @@ with a ``torch.Generator`` of ``seed + 11`` and runs the model in
 ``train()``, with dropout.  The update is clip 40 plus AdamW with optax's
 defaults (``agent/update.py``).  The ``VLNPretrainModel`` state dict is
 saved at the end as ``<work-dir>/ckpt/step_NNNNNNNN/model.pth``.
+
+``--mesh N`` (torchrun, one process a card, N the world size) splits each
+update's batch over the ranks: every rank draws the same records and
+masks, takes its rows, and the update equals the one-process update
+(``agent.parallel``); rank 0 writes the log and the checkpoint.
 """
 
 from __future__ import annotations
@@ -29,9 +34,6 @@ import time
 from typing import Dict
 
 import numpy as np
-
-_MESH_TODO = ("--mesh (data-parallel agent updates) is not ported yet "
-              "(ROADMAP Queue 1, item 13)")
 
 
 def parse_args(argv=None):
@@ -65,7 +67,8 @@ def parse_args(argv=None):
                         "pretraining starts from LXMERT/DUET x-layers")
     p.add_argument("--embed-dims", type=int, default=None)
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel updates; not ported yet")
+                   help="data-parallel updates over N processes (torchrun; "
+                        "--batch must divide by N)")
     p.add_argument("--work-dir", default="work_dirs/vln_pre")
     p.add_argument("--log-interval", type=int, default=20)
     p.add_argument("--seed", type=int, default=0)
@@ -77,32 +80,34 @@ def parse_args(argv=None):
 def pretrain_updates(model, state, records, batch_size: int,
                      rng: np.random.Generator, generator, device,
                      mask_id: int = 1, special_ids: tuple = (),
-                     stages=None):
+                     stages=None, mesh=None):
     """The pretrainer's loop, as a generator: draw ``batch_size`` records,
     stack and upload them, take one update of ``pretrain_loss``; yields
     (update, loss, parts) after each.  ``stages`` gathers the CUDA events
     of ``agent.update.mark``: ``"start"``, ``"upload"``, then the
-    update's."""
+    update's.  With ``mesh`` this rank stacks its rows of the drawn
+    records (``agent.update.update``'s ``mesh``)."""
+    from .agent.parallel import shard_agent_batch
     from .agent.pretrain import pretrain_loss, stack_records
     from .agent.update import mark, update
 
     step = 0
     while True:
         idx = rng.integers(0, len(records), batch_size)
+        if mesh is not None:
+            idx = shard_agent_batch(mesh, idx)
         mark(stages, "start")
         batch = stack_records([records[i] for i in idx], device)
         mark(stages, "upload")
         loss, parts, _ = update(state, lambda: pretrain_loss(
             model, batch, generator, mask_id=mask_id,
-            special_ids=special_ids), stages)
+            special_ids=special_ids), stages, mesh=mesh)
         step += 1
         yield step, loss, parts
 
 
 def main(argv=None) -> Dict[str, float]:
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(_MESH_TODO)
     import torch
 
     from .agent.cli_setup import build_vln_setup, graft_pretrained
@@ -110,10 +115,17 @@ def main(argv=None) -> Dict[str, float]:
     from .agent.pretrain import (VLNPretrainModel, collect_teacher_trace,
                                  init_pretrain_params)
     from .agent.update import make_train_state
+    from .parallel import multihost
+    from .parallel.mesh import make_mesh, replicate
     from .runtime import resolve_device, set_fp32_precision
     from .utils.checkpoint import save_model
 
-    device = resolve_device(args.device)
+    device = multihost.initialize_if_needed(resolve_device(args.device))
+    mesh = make_mesh((args.mesh, 1)) if args.mesh else None
+    if mesh is not None and args.batch % args.mesh:
+        raise SystemExit(f"--batch {args.batch} must divide by --mesh "
+                         f"{args.mesh}")
+    writer = multihost.process_index() == 0
     os.makedirs(args.work_dir, exist_ok=True)
     rng = np.random.default_rng(args.seed)
     torch.manual_seed(args.seed)        # the dropout masks
@@ -127,6 +139,8 @@ def main(argv=None) -> Dict[str, float]:
         VLNPretrainModel(cfg, grounding=objects is not None), args.seed)
     graft_pretrained(model.policy, cfg, setup.text_params, setup.xmodal)
     model = model.to(device).train()     # dropout on, as in JAX
+    if mesh is not None:
+        replicate(mesh, model)
     n = sum(p.numel() for p in model.parameters())
     print(f"pretrain params: {n / 1e6:.2f}M, episodes: {len(episodes)}, "
           f"mask_id: {setup.mask_id}")
@@ -143,11 +157,11 @@ def main(argv=None) -> Dict[str, float]:
     generator = torch.Generator(device=device).manual_seed(args.seed + 11)
     updates = pretrain_updates(model, state, records, args.batch, rng,
                                generator, device, mask_id=setup.mask_id,
-                               special_ids=setup.special_ids)
+                               special_ids=setup.special_ids, mesh=mesh)
     m: Dict[str, float] = {}
     t0 = time.perf_counter()
-    with open(os.path.join(args.work_dir, "pretrain_log.jsonl"),
-              "a") as logf:
+    with open(os.path.join(args.work_dir, "pretrain_log.jsonl")
+              if writer else os.devnull, "a") as logf:
         for _ in range(args.steps):
             step, loss, parts = next(updates)
             if step % args.log_interval == 0 or step == args.steps:
@@ -159,8 +173,9 @@ def main(argv=None) -> Dict[str, float]:
                 logf.write(json.dumps(m) + "\n")
                 logf.flush()
 
-    save_model(os.path.join(args.work_dir, "ckpt"), args.steps, model)
-    print(f"saved pretrain params at step {args.steps}")
+    if writer:
+        save_model(os.path.join(args.work_dir, "ckpt"), args.steps, model)
+        print(f"saved pretrain params at step {args.steps}")
     print("done")
     return m
 

@@ -16,6 +16,13 @@ writes a synthetic test split where the annotation file is missing.
 Prints the metric keys of ``tools/test.py`` (``mAP_*``, ``mAR_*``,
 ``miou``, ``iou``, ``occ_precision``, ``occ_recall``) and fails on a
 capacity overflow.
+
+Over several cards, one process each (torchrun's environment):
+  torchrun --nproc-per-node N -m vln_ver_tpu_torch.test CONFIG ... \
+      --mesh D[,V]
+splits the split over D data groups (``--batch-size`` must divide by D)
+and each viewpoint's cameras over V; every rank prints the metrics of the
+whole split (``evaluation.runner.evaluate_model``).
 """
 
 from __future__ import annotations
@@ -41,7 +48,8 @@ def parse_args(argv=None):
                    default=[0.25])
     p.add_argument("--batch-size", type=int, default=1)
     p.add_argument("--mesh", type=str, default=None,
-                   help="multi-card eval; not ported yet")
+                   help="'D[,V]': data x view process grid over the world "
+                        "(torchrun); default D = the world, V = 1")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain path")
     return p.parse_args(argv)
@@ -49,10 +57,6 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh (multi-card eval) is not ported yet (ROADMAP Queue 1, "
-            "item 13)")
     from .config.api import (apply_cfg_options, build_ver_config,
                              dataset_kwargs, load_config)
     from .convert.voxelformer import load_checkpoint
@@ -60,10 +64,13 @@ def main(argv=None) -> dict:
     from .data.synthetic import make_synthetic_dataset
     from .evaluation.runner import evaluate_model
     from .models.detector import build_model
+    from .parallel import multihost
+    from .parallel.mesh import parse_eval_mesh, replicate
     from .runtime import resolve_device, set_fp32_precision
     from .utils.checkpoint import model_file
 
-    device = resolve_device(args.device)
+    device = multihost.initialize_if_needed(resolve_device(args.device))
+    mesh = parse_eval_mesh(args.mesh)
     cfg = apply_cfg_options(load_config(args.config), args.cfg_options)
     ver = build_ver_config(cfg)
     set_fp32_precision(ver.dtype)
@@ -74,13 +81,11 @@ def main(argv=None) -> dict:
         if not args.synthetic:
             raise FileNotFoundError(ann)
         os.makedirs(root or "data/mp3d", exist_ok=True)
-        ann = make_synthetic_dataset(root or "data/mp3d", split="test",
-                                     num_cams=ver.num_cams,
-                                     feat_hw=ver.feat_h,
-                                     feat_dim=ver.in_channels,
-                                     occ_dims=(ver.occ_zdim, ver.occ_ydim,
-                                               ver.occ_xdim),
-                                     pc_range=ver.pc_range)
+        ann = multihost.run_once(lambda: make_synthetic_dataset(
+            root or "data/mp3d", split="test", num_cams=ver.num_cams,
+            feat_hw=ver.feat_h, feat_dim=ver.in_channels,
+            occ_dims=(ver.occ_zdim, ver.occ_ydim, ver.occ_xdim),
+            pc_range=ver.pc_range))
     dataset = MP3DDataset(ann, root, num_cams=ver.num_cams,
                           feat_hw=ver.feat_h, voxel_num=ver.voxel_num,
                           occupancy_classes=ver.occupancy_classes,
@@ -89,12 +94,15 @@ def main(argv=None) -> dict:
     model = build_model(ver, device, seed=0)
     if args.checkpoint:
         load_checkpoint(model, model_file(args.checkpoint))
+    if mesh is not None:
+        replicate(mesh, model)
     try:
         metrics = evaluate_model(model, dataset,
                                  occ_thresholds=tuple(args.occ_thresholds),
                                  limit=args.limit,
                                  batch_size=args.batch_size,
-                                 classes=tuple(ds_kw.get("classes", ())))
+                                 classes=tuple(ds_kw.get("classes", ())),
+                                 mesh=mesh)
     finally:
         dataset.close()
     for k in sorted(metrics):

@@ -14,6 +14,12 @@ step is read), a step directory, or a ``.pth`` file.  ``--synthetic``
 builds the synthetic environment and the small policy of
 ``tools/test_vln.py --synthetic`` in memory.  Prints one JSON line of mean
 metrics, rounded to 4 places.
+
+Over several cards, one process each (torchrun's environment):
+  torchrun --nproc-per-node N -m vln_ver_tpu_torch.test_vln ... --mesh N \
+      [--batch B]
+splits the episodes over the N ranks (lockstep batches of B / N each) and
+gathers every episode's metrics (``rollout.episode_metrics``).
 """
 
 from __future__ import annotations
@@ -46,7 +52,9 @@ def parse_args(argv=None):
                    help="lockstep-batched eval: episodes per policy call "
                         "(rollout.evaluate_batched; default: per-episode)")
     p.add_argument("--mesh", type=int, default=None,
-                   help="multi-card eval; not ported yet")
+                   help="split the episodes over N processes (torchrun); "
+                        "lockstep batches of --batch (default N) split "
+                        "over them")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu'")
     return p.parse_args(argv)
@@ -54,17 +62,16 @@ def parse_args(argv=None):
 
 def main(argv=None) -> dict:
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(
-            "--mesh (the agent's device mesh) is not ported yet (ROADMAP "
-            "Queue 1, item 13)")
     from .agent.env import R2REnv, make_synthetic_vln
     from .agent.policy import PolicyConfig, VLNPolicy
     from .agent.rollout import evaluate, evaluate_batched
+    from .parallel import multihost
+    from .parallel.mesh import make_mesh
     from .runtime import resolve_device, set_fp32_precision
     from .utils.checkpoint import latest_step, load_model
 
-    device = resolve_device(args.device)
+    device = multihost.initialize_if_needed(resolve_device(args.device))
+    mesh = make_mesh((args.mesh, 1)) if args.mesh else None
     if args.synthetic:
         dims = args.embed_dims or 64
         cfg = PolicyConfig(embed_dims=dims, num_heads=4, fusion_layers=2,
@@ -113,9 +120,10 @@ def main(argv=None) -> dict:
     load_model(args.checkpoint, policy)   # strict: every weight is read
     print(f"restored policy step {step}")
 
-    if args.batch:
+    if args.batch or mesh is not None:
         metrics = evaluate_batched(policy, env, cfg, limit=args.limit,
-                                   batch_size=args.batch)
+                                   batch_size=args.batch or args.mesh,
+                                   mesh=mesh)
     else:
         metrics = evaluate(policy, env, cfg, limit=args.limit)
     out = {k: round(float(v), 4) for k, v in metrics.items()}

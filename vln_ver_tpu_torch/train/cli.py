@@ -13,6 +13,15 @@ Usage:
 
 SIGTERM finishes the step in flight, writes a synchronous checkpoint and
 exits 0; ``--resume`` then continues at the same step and data position.
+
+Data-parallel over several cards, one process each (torchrun's
+environment), optionally with each viewpoint's cameras split over V:
+  torchrun --nproc-per-node N -m vln_ver_tpu_torch.train CONFIG ... \
+      --mesh D[,V]
+Each global batch of ``--batch-size`` (which must divide by D) is split
+over the data ranks; the step equals the one-process step on the global
+batch (``train.step``).  Rank 0 writes the checkpoints and the log; every
+rank restores.
 """
 
 from __future__ import annotations
@@ -56,7 +65,8 @@ def parse_args(argv=None):
                    help="recompute encoder layers in the backward "
                         "(torch.utils.checkpoint); the same numbers")
     p.add_argument("--mesh", type=str, default=None,
-                   help="multi-card training; not ported yet")
+                   help="'D[,V]': data x view process grid over the world "
+                        "(torchrun); default D = the world, V = 1")
     p.add_argument("--tp-model", type=int, default=1,
                    help="tensor-parallel training; not ported yet")
     p.add_argument("--device", default="cuda",
@@ -77,10 +87,10 @@ def _best_key(metrics: dict, name: str, thresholds) -> str | None:
 def main(argv=None) -> dict:
     """Runs the training; returns the metrics of the last step taken."""
     args = parse_args(argv)
-    if args.mesh or args.tp_model > 1:
+    if args.tp_model > 1:
         raise NotImplementedError(
-            "--mesh / --tp-model (multi-card training) is not ported yet "
-            "(ROADMAP Queue 1, item 13)")
+            "--tp-model (tensor-parallel training) is not ported yet "
+            "(ROADMAP Queue 1, item 13b)")
     if args.save_best and 0 < args.eval_limit < 256:
         print(f"WARNING: --save-best {args.save_best!r} with --eval-limit "
               f"{args.eval_limit}: best-checkpoint selection on a small "
@@ -93,6 +103,8 @@ def main(argv=None) -> dict:
     from ..data.mp3d import MP3DDataset, iterate_batches
     from ..data.synthetic import make_synthetic_dataset
     from ..models.detector import build_model
+    from ..parallel import multihost
+    from ..parallel.mesh import parse_eval_mesh, replicate, shard_views
     from ..runtime import resolve_device
     from ..utils.checkpoint import (AsyncSaver, latest_step, restore_state,
                                     save_state)
@@ -100,7 +112,10 @@ def main(argv=None) -> dict:
     from .state import create_train_state, param_count
     from .step import make_train_step
 
-    device = resolve_device(args.device)
+    device = multihost.initialize_if_needed(resolve_device(args.device))
+    mesh = parse_eval_mesh(args.mesh)
+    # rank 0 writes the checkpoints and the logs
+    writer = multihost.process_index() == 0
     cfg = apply_cfg_options(load_config(args.config), args.cfg_options)
     log_cfg = cfg.get("log_config", {}) or {}
     if any("Tensorboard" in str(h.get("type", ""))
@@ -120,14 +135,12 @@ def main(argv=None) -> dict:
             raise FileNotFoundError(
                 f"{ann} not found; pass --synthetic to generate data")
         os.makedirs(root or "data/mp3d", exist_ok=True)
-        ann = make_synthetic_dataset(root or "data/mp3d", num_scans=2,
-                                     viewpoints_per_scan=4,
-                                     num_cams=ver.num_cams,
-                                     feat_hw=ver.feat_h,
-                                     feat_dim=ver.in_channels,
-                                     occ_dims=(ver.occ_zdim, ver.occ_ydim,
-                                               ver.occ_xdim),
-                                     pc_range=ver.pc_range)
+        ann = multihost.run_once(lambda: make_synthetic_dataset(
+            root or "data/mp3d", num_scans=2, viewpoints_per_scan=4,
+            num_cams=ver.num_cams, feat_hw=ver.feat_h,
+            feat_dim=ver.in_channels,
+            occ_dims=(ver.occ_zdim, ver.occ_ydim, ver.occ_xdim),
+            pc_range=ver.pc_range))
     dataset = MP3DDataset(ann, root, voxel_num=ver.voxel_num,
                           occupancy_classes=ver.occupancy_classes,
                           num_cams=ver.num_cams, feat_hw=ver.feat_h)
@@ -141,8 +154,15 @@ def main(argv=None) -> dict:
     steps_per_epoch = len(dataset) // batch_size
     tc = build_train_config(cfg, steps_per_epoch)
     total_steps = args.max_steps or tc.total_steps
+    d = 1 if mesh is None else mesh.data_size
+    if batch_size % d:
+        raise SystemExit(f"--batch-size {batch_size} not divisible by the "
+                         f"mesh's data size {d}")
+    local_batch = batch_size // d
 
     model = build_model(ver, device, seed=args.seed)
+    if mesh is not None:
+        replicate(mesh, model).shard_views(mesh.views)
     state = create_train_state(model, tc)
     print(f"model params: {param_count(model) / 1e6:.1f}M; device: "
           f"{device}; batch: {batch_size}; steps/epoch: {steps_per_epoch}")
@@ -155,7 +175,7 @@ def main(argv=None) -> dict:
             restore_state(ckpt_dir, found, state)
             start_step = state.step
             print(f"resumed from step {start_step}")
-    step_fn = make_train_step(ver, tc)
+    step_fn = make_train_step(ver, tc, mesh)
     log_interval = args.log_interval or int(log_cfg.get("interval", 50))
 
     # checkpoint metadata (the reference's tools/train.py embeds the config
@@ -163,13 +183,23 @@ def main(argv=None) -> dict:
     os.makedirs(ckpt_dir, exist_ok=True)
     with open(args.config) as f:
         cfg_text = f.read()
-    with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
-        json.dump({"config": cfg_text,
-                   "CLASSES": list(cfg.get("class_names", ())
-                                   or cfg.get("data", {}).get(
-                                       "train", {}).get("classes", ()))}, f)
+    if writer:
+        with open(os.path.join(ckpt_dir, "meta.json"), "w") as f:
+            json.dump({"config": cfg_text,
+                       "CLASSES": list(cfg.get("class_names", ())
+                                       or cfg.get("data", {}).get(
+                                           "train", {}).get("classes", ()))},
+                      f)
 
-    saver = AsyncSaver() if args.async_ckpt else None
+    saver = AsyncSaver() if args.async_ckpt and writer else None
+
+    def save(step_dir_root, step_no):
+        if not writer:
+            return
+        if saver is not None:
+            saver.save(step_dir_root, step_no, state)
+        else:
+            save_state(step_dir_root, step_no, state)
     # preemption: finish the step in flight, write a synchronous
     # checkpoint and exit 0, so that --resume continues from there
     got_signal: list = []
@@ -185,7 +215,8 @@ def main(argv=None) -> dict:
     val_ds, val_kw = None, {}
     t0 = time.perf_counter()
     try:
-        with open(os.path.join(args.work_dir, "train_log.jsonl"), "a") as log:
+        with open(os.path.join(args.work_dir, "train_log.jsonl")
+                  if writer else os.devnull, "a") as log:
             while step < total_steps:
                 # a fixed shuffle per epoch, drop_last
                 order = np.random.default_rng(args.seed + epoch).permutation(
@@ -193,9 +224,14 @@ def main(argv=None) -> dict:
                 order = order[skip * batch_size:]
                 skip = 0
                 epoch += 1
+                # this data rank's rows of every global batch
+                lo = 0 if mesh is None else mesh.data_index * local_batch
+                order = order.reshape(-1, batch_size)[
+                    :, lo:lo + local_batch].reshape(-1)
                 for batch in staged_batches(
-                        iterate_batches(dataset, batch_size, indices=order),
-                        lambda b: to_device(b, device)):
+                        iterate_batches(dataset, local_batch, indices=order),
+                        lambda b: to_device(b if mesh is None else
+                                            shard_views(mesh, b), device)):
                     if step >= total_steps:
                         break
                     out = step_fn(state, batch, args.seed + 1)
@@ -203,14 +239,16 @@ def main(argv=None) -> dict:
                     if got_signal:
                         if saver is not None:
                             saver.wait()
-                        save_state(ckpt_dir, step, state)
+                        if writer:
+                            save_state(ckpt_dir, step, state)
                         print(f"signal {got_signal[0]}: checkpoint saved at "
                               f"step {step}; resume with --resume")
                         return {k: float(v) for k, v in out.items()}
                     if step % log_interval == 0 or step == total_steps:
                         metrics = {k: float(v) for k, v in out.items()}
                         if metrics["sca_overflow"] > 0:
-                            save_state(ckpt_dir, step, state)
+                            if writer:
+                                save_state(ckpt_dir, step, state)
                             raise SystemExit(
                                 f"sca_query_capacity overflow at step {step}"
                                 f": {int(metrics['sca_overflow'])} visible "
@@ -228,10 +266,7 @@ def main(argv=None) -> dict:
                               f"occ={metrics.get('loss_occupancy', 0):.4f} "
                               f"({metrics['sec_per_step']:.2f}s/step)")
                     if step % args.ckpt_interval == 0 or step == total_steps:
-                        if saver is not None:
-                            saver.save(ckpt_dir, step, state)
-                        else:
-                            save_state(ckpt_dir, step, state)
+                        save(ckpt_dir, step)
                     if args.eval_interval and (step % args.eval_interval == 0
                                                or step == total_steps):
                         from ..evaluation.runner import evaluate_model
@@ -251,7 +286,8 @@ def main(argv=None) -> dict:
                             model, val_ds,
                             occ_thresholds=tuple(args.occ_thresholds),
                             limit=args.eval_limit or None,
-                            classes=tuple(val_kw.get("classes", ())))
+                            classes=tuple(val_kw.get("classes", ())),
+                            batch_size=d, mesh=mesh)
                         keep = {k: round(float(v), 4) for k, v in em.items()
                                 if k.startswith(("mAP", "mAR", "miou", "iou",
                                                  "occ_"))}
@@ -267,8 +303,9 @@ def main(argv=None) -> dict:
                                   f"matches no eval metric {sorted(keep)}")
                         if key is not None and float(em[key]) > best:
                             best = float(em[key])
-                            save_state(os.path.join(args.work_dir,
-                                                    "ckpt_best"), step, state)
+                            if writer:
+                                save_state(os.path.join(
+                                    args.work_dir, "ckpt_best"), step, state)
                             print(f"new best {args.save_best}={best:.4f} at "
                                   f"step {step}")
         if saver is not None:

@@ -19,6 +19,11 @@ gravity boxes; gt_labels (B, G) int; gt_valid (B, G) bool; occ_dense
 
 All decoder layers are matched in one call of the matcher: the host
 matcher copies one (layers * B, nq, G) cost block to the host per step.
+
+Inside ``parallel.mesh.data_parallel`` the batch is this rank's rows of a
+global batch: each avg factor (``num_pos``, ``n_lay``, ``num_occupied``)
+is summed over the data group before the divide, as the reference's
+``reduce_mean`` (and JAX's loss over the global batch) has it.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from ..boxes import normalize_bbox
 from ..matching import (BIG_COST, build_detr_targets, hungarian_auction,
                         hungarian_host)
 from ..models.config import VERConfig
+from ..parallel.mesh import data_size, global_count
 
 CODE_WEIGHTS = (1.0,) * 8 + (0.0, 0.0)
 
@@ -93,7 +99,7 @@ def _det_losses(cfg: VERConfig, all_cls, all_bbox, batch, matcher: str):
     labels, targets, bbox_w = build_detr_targets(
         matched, _rep(gt_valid, nl), _rep(gt_labels, nl), _rep(gt_boxes, nl),
         cfg.num_query, cfg.num_classes)
-    num_pos = torch.clamp_min(gt_valid.float().sum(), 1.0)
+    num_pos = torch.clamp_min(global_count(gt_valid.float().sum()), 1.0)
     code_w = torch.tensor(CODE_WEIGHTS, device=all_bbox.device)
     tgt_norm = normalize_bbox(targets).reshape(nl, b * nq, -1)
     weights = (bbox_w[..., None] * code_w).reshape(nl, b * nq, -1)
@@ -142,7 +148,8 @@ def compute_losses(cfg: VERConfig, outs: Dict, batch: Dict,
                              layout_valid, matcher)
             _, lay_targets, lay_w = build_detr_targets(
                 matched, layout_valid, zeros, gt_layout, cfg.num_query, 1)
-            n_lay = torch.clamp_min(layout_valid.float().sum(), 1.0)
+            n_lay = torch.clamp_min(
+                global_count(layout_valid.float().sum()), 1.0)
             code_w = torch.tensor(CODE_WEIGHTS, device=last.device)
             weights = lay_w[..., None] * code_w
             loss_dict["loss_layout"] = torch.nan_to_num(L.weighted_l1_loss(
@@ -154,7 +161,8 @@ def compute_losses(cfg: VERConfig, outs: Dict, batch: Dict,
     if not cfg.only_det and outs.get("occupancy_preds") is not None:
         occ_preds = outs["occupancy_preds"]                 # (B, n_vox, C)
         gt_occ = batch["occ_dense"].reshape(-1).long()
-        num_occupied = (gt_occ < cfg.occupancy_classes).float().sum()
+        num_occupied = global_count(
+            (gt_occ < cfg.occupancy_classes).float().sum())
         if cfg.occ_loss_type == "ce_loss":
             # the last channel is empty; the labels already use
             # occupancy_classes for empty
@@ -169,4 +177,9 @@ def compute_losses(cfg: VERConfig, outs: Dict, batch: Dict,
         loss_dict["loss_occupancy"] = torch.nan_to_num(loss_occ)
         loss_dict["loss_flow"] = torch.zeros((), device=occ_preds.device)
 
+    if data_size() > 1:
+        # this rank's share of the global loss, times D: the mean over the
+        # data ranks (of the losses and of their gradients) is the global
+        # batch's loss
+        loss_dict = {k: v * data_size() for k, v in loss_dict.items()}
     return loss_dict

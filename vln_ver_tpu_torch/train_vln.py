@@ -21,6 +21,12 @@ teacher coin, as in JAX; a ``torch.Generator`` of ``seed + 7`` draws the
 sampled actions.  The policy is saved at the end as
 ``<work-dir>/ckpt/step_NNNNNNNN/model.pth``, which ``python -m
 vln_ver_tpu_torch.test_vln --checkpoint`` reads.
+
+``--mesh N`` (torchrun, one process a card, N the world size): every rank
+rolls the same episodes (the policy is the same everywhere) and each
+update's decision steps are split over the ranks; the update equals the
+one-process update (``agent.parallel``).  Rank 0 writes the log and the
+checkpoint.
 """
 
 from __future__ import annotations
@@ -32,9 +38,6 @@ import time
 from typing import Dict, Optional
 
 import numpy as np
-
-_MESH_TODO = ("--mesh (data-parallel agent updates) is not ported yet "
-              "(ROADMAP Queue 1, item 13)")
 
 
 def parse_args(argv=None):
@@ -69,7 +72,8 @@ def parse_args(argv=None):
                    help="decision steps per optimizer update (rollout "
                         "steps are buffered and stacked)")
     p.add_argument("--mesh", type=int, default=0,
-                   help="data-parallel updates; not ported yet")
+                   help="data-parallel updates over N processes (torchrun; "
+                        "--update-batch must divide by N)")
     p.add_argument("--work-dir", default="work_dirs/vln")
     p.add_argument("--embed-dims", type=int, default=None)
     p.add_argument("--text-init", default=None,
@@ -99,7 +103,7 @@ def dagger_updates(policy, state, env, cfg, rng: np.random.Generator,
                    generator, device, sample_prob: float = 0.5,
                    dagger_ramp: int = 0, episode_batch: int = 1,
                    update_batch: int = 8, times: Optional[Dict] = None,
-                   stages=None):
+                   stages=None, mesh=None):
     """The trainer's loop, as a generator: roll episodes (greedy, or with
     sampled actions with probability ``sample_prob`` ramped over
     ``dagger_ramp`` steps), buffer their teacher-labelled steps, and take
@@ -109,7 +113,10 @@ def dagger_updates(policy, state, env, cfg, rng: np.random.Generator,
     with the student's actions, and the rest of ``times`` is their split
     (``agent.rollout``'s ``times=``); ``stages`` the CUDA events of
     ``agent.update.mark``: ``"start"``, ``"upload"`` (stacking and
-    upload), then the update's."""
+    upload), then the update's.  With ``mesh`` each update stacks this
+    rank's rows of the decision steps (``agent.update.update``'s
+    ``mesh``)."""
+    from .agent.parallel import shard_agent_batch
     from .agent.pretrain import stack_records
     from .agent.rollout import (imitation_step_loss, run_episode,
                                 run_episodes_batched)
@@ -144,18 +151,20 @@ def dagger_updates(policy, state, env, cfg, rng: np.random.Generator,
         while len(buffer) >= update_batch:
             chunk, buffer = buffer[:update_batch], buffer[update_batch:]
             mark(stages, "start")
-            batch = stack_records(chunk, device)
+            rows = (chunk if mesh is None else
+                    [chunk[i] for i in shard_agent_batch(
+                        mesh, np.arange(len(chunk)))])
+            batch = stack_records(rows, device)
             mark(stages, "upload")
             loss, parts, _ = update(
-                state, lambda: imitation_step_loss(policy, batch), stages)
+                state, lambda: imitation_step_loss(policy, batch), stages,
+                mesh=mesh)
             step += len(chunk)
             yield step, loss, parts
 
 
 def main(argv=None) -> Dict[str, float]:
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError(_MESH_TODO)
     import torch
 
     from .agent.cli_setup import build_vln_setup, graft_pretrained
@@ -164,10 +173,17 @@ def main(argv=None) -> Dict[str, float]:
     from .agent.pretrain import extract_policy_params
     from .agent.rollout import evaluate
     from .agent.update import make_train_state
+    from .parallel import multihost
+    from .parallel.mesh import make_mesh, replicate
     from .runtime import resolve_device, set_fp32_precision
     from .utils.checkpoint import latest_step, model_file, save_model
 
-    device = resolve_device(args.device)
+    device = multihost.initialize_if_needed(resolve_device(args.device))
+    mesh = make_mesh((args.mesh, 1)) if args.mesh else None
+    if mesh is not None and args.update_batch % args.mesh:
+        raise SystemExit(f"--update-batch {args.update_batch} must divide "
+                         f"by --mesh {args.mesh}")
+    writer = multihost.process_index() == 0
     os.makedirs(args.work_dir, exist_ok=True)
     rng = np.random.default_rng(args.seed)
 
@@ -199,6 +215,8 @@ def main(argv=None) -> Dict[str, float]:
                                strict=True)
         graft_pretrained(policy, cfg, setup.text_params, setup.xmodal)
     policy = policy.to(device).eval()   # dropout off, as in JAX
+    if mesh is not None:
+        replicate(mesh, policy)
     n_params = sum(p.numel() for p in policy.parameters())
     print(f"policy params: {n_params / 1e6:.2f}M, episodes: "
           f"{len(episodes)}")
@@ -208,12 +226,14 @@ def main(argv=None) -> Dict[str, float]:
     updates = dagger_updates(
         policy, state, env, cfg, rng, generator, device,
         sample_prob=args.sample_prob, dagger_ramp=args.dagger_ramp,
-        episode_batch=args.episode_batch, update_batch=args.update_batch)
+        episode_batch=args.episode_batch, update_batch=args.update_batch,
+        mesh=mesh)
 
     metrics: Dict[str, float] = {}
     t0 = time.perf_counter()
     step, losses = 0, []
-    with open(os.path.join(args.work_dir, "vln_log.jsonl"), "a") as logf:
+    with open(os.path.join(args.work_dir, "vln_log.jsonl")
+              if writer else os.devnull, "a") as logf:
         while step < args.steps:
             step, loss, _ = next(updates)
             losses.append(float(loss))
@@ -232,8 +252,9 @@ def main(argv=None) -> Dict[str, float]:
                 logf.write(json.dumps(metrics) + "\n")
                 logf.flush()
 
-    save_model(os.path.join(args.work_dir, "ckpt"), step, policy)
-    print(f"saved policy params at step {step}")
+    if writer:
+        save_model(os.path.join(args.work_dir, "ckpt"), step, policy)
+        print(f"saved policy params at step {step}")
     print("done")
     return metrics
 

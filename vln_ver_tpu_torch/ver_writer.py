@@ -20,6 +20,7 @@ bytes.
 
 from __future__ import annotations
 
+import contextlib
 import queue as queue_mod
 import threading
 import time
@@ -108,22 +109,39 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
     of them is that cast anyway), ``"float32"`` / ``"bfloat16"`` cast to
     that dtype, None uploads as it is, and ``"int8"`` uploads
     :func:`quantize_int8`'s int8 values and fp32 scales and dequantises
-    on the device before ``bev_only`` (not exact).  ``mesh`` is not
-    ported yet and raises.
+    on the device before ``bev_only`` (not exact).
+
+    ``mesh`` (a ``parallel.mesh.Mesh``; every rank calls this function)
+    splits ``indices`` over the data ranks in contiguous blocks
+    (``multihost.shard_indices``), each taking batches of ``batch_size /
+    D`` viewpoints (``batch_size`` must divide by D, as in JAX), and hands
+    ``bev_only`` this rank's block of cameras: the model behind it must
+    split its lift the same way (``VoxelFormer.shard_views(mesh.views)``).
+    Only view rank 0 of a data group writes (HDF5 has no concurrent
+    writers: the caller gives each data group its own ``savename``), and
+    ``sca_overflow`` is the world's largest.
 
     Returns ``dict(written, seconds, volumes_per_sec, sca_overflow)``;
     the caller decides what a nonzero overflow means.
     """
-    import h5py
-
     from .data.mp3d import iterate_batches
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh dumps are not ported yet (ROADMAP Queue 1, item 6c, with "
-            "multi-GPU in item 13)")
     cast = _upload_cast(ver, input_cast, input_key)
     device = torch.device(device)
+    writes = True
+    if mesh is not None:
+        from .parallel.mesh import shard_views
+        from .parallel.multihost import shard_indices
+        if batch_size % mesh.data_size:
+            raise ValueError(f"batch_size {batch_size} not divisible by the "
+                             f"mesh's data size {mesh.data_size}")
+        batch_size //= mesh.data_size
+        idx = list(indices if indices is not None else range(len(dataset)))
+        indices = [idx[i] for i in shard_indices(len(idx), mesh.data_index,
+                                                 mesh.data_size)]
+        writes = mesh.writer
+    if writes:
+        import h5py
 
     write_q: "queue_mod.Queue" = queue_mod.Queue(maxsize=4)
     werr: list = []
@@ -131,6 +149,8 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
 
     def _write(outf, tokens, vol):
         nonlocal written
+        if not writes:
+            return
         for i, token in enumerate(tokens):
             if token in outf:
                 del outf[token]
@@ -138,9 +158,14 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
                                 compression_opts=gzip_level)
             written += 1
 
+    def open_out():
+        if not writes:
+            return contextlib.nullcontext()
+        return h5py.File(savename, "a")
+
     def writer():
         try:
-            with h5py.File(savename, "a") as outf:
+            with open_out() as outf:
                 while True:
                     item = write_q.get()
                     if item is None:
@@ -158,6 +183,8 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
     def prep(batch):
         """Cast or quantise and upload one batch (on the transfer thread
         when pipelined)."""
+        if mesh is not None:
+            batch = shard_views(mesh, batch)
         if cast == "int8":
             inputs = tuple(torch.from_numpy(a).to(device)
                            for a in quantize_int8(batch[input_key]))
@@ -206,7 +233,7 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
     t0 = time.perf_counter()
     overflows = []   # read once at the end: no sync per batch
     pending = None
-    serial_file = h5py.File(savename, "a") if serial else None
+    serial_file = h5py.File(savename, "a") if serial and writes else None
     transfer = None if serial else ThreadPoolExecutor(
         max_workers=1, thread_name_prefix="ver_transfer")
     try:
@@ -259,6 +286,10 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
                 pass
             wt.join(timeout=30)
     dt = time.perf_counter() - t0
+    overflow = max((int(o) for o in overflows), default=0)
+    if mesh is not None and mesh.distributed:
+        from .parallel.multihost import allreduce_max
+        overflow = allreduce_max(overflow, group=mesh.world_group)
     return dict(written=written, seconds=dt,
                 volumes_per_sec=written / max(dt, 1e-9),
-                sca_overflow=max((int(o) for o in overflows), default=0))
+                sca_overflow=overflow)
