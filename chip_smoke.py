@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's VER volume path, its full forward and eval path,
 its training path, the VLN agent's evaluation and training paths, the VER
-server and the multi-process paths (in a process group of one) once on
-one NVIDIA GPU.
+server, the multi-process paths (in a process group of one), the temporal
+VER model with decoder_on_bev and the BEVFormer-2D family once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -15,7 +16,9 @@ Phases (any failure exits nonzero, nothing is caught):
      its autograd at the full main-path shape (fp32 and bf16), at the eval
      path's (batch 2, phase 6) and at the edges of the launch plans: a
      10x20 map, bs=1, nq=57 and 901, B=8, one V stage (d=256), rows the
-     TMA unit cannot take (d=3), far-out locations;
+     TMA unit cannot take (d=3), far-out locations; and at the launches of
+     phases 11 and 12 (PATH_SHAPES: P=4, d=32, a 15x15 map, nq=100 and
+     225), fp32 and bf16;
   4. run the main path as get_occ does (configs/verformer/get_occ.py, random
      weights from seed 0, 16 synthetic viewpoints, batch 4): the lift, the
      host copy and the dump layout (the HDF5 write needs h5py, which a
@@ -43,7 +46,9 @@ Phases (any failure exits nonzero, nothing is caught):
      path's shapes, print each timed launch's plan, the bytes bound and the
      shared-memory floor; then the same for the backward kernel against the
      plain version's autograd backward, with its own shared-memory floor
-     and plan, and its dvalue and dlocations / dweights halves alone;
+     and plan, and its dvalue and dlocations / dweights halves alone; then
+     both kernels at PATH_SHAPES (graph time fp32 and bf16, the plain
+     version and its autograd, the bounds and floors);
   6. run the full forward and the eval path as ``python -m
      vln_ver_tpu_torch.test`` does (configs/verformer/vocc.py at full
      width, the same random weights from seed 0, 8 synthetic viewpoints
@@ -67,7 +72,9 @@ Phases (any failure exits nonzero, nothing is caught):
      matched queries, the losses and every parameter's gradient.  Print
      train steps/s, peak device memory, the device time of the forward,
      losses and matching, backward and optimizer (CUDA events), the busy
-     share and largest kernels of one profiled step.  Then one step with
+     share and largest kernels of one profiled step, and the clip's global
+     norm (float64 sums, train.state.global_norm) against the fp32 form on
+     the model's gradient shapes: ms and kernels a call.  Then one step with
      remat_encoder (the forward kernel replayed on autograd's thread)
      against one without, and one step with sca_query_capacity=256
      against the dense step (the backward kernel at nq=256), each on the
@@ -121,7 +128,8 @@ Phases (any failure exits nonzero, nothing is caught):
      finite and the parameters moved: updates/s, decision steps trained/s,
      ms per update of the rollout (host), stacking and upload, forward and
      loss, backward, clip and AdamW (CUDA events), peak device memory, the
-     busy share of one profiled update, GFLOP an update; then the handoff:
+     busy share of one profiled update, GFLOP an update, the global norm's
+     cost as in phase 7 on the policy's shapes; then the handoff:
      save_model, load_model into a new policy (the weights equal) and
      evaluate_batched at batch 8 over the 16 episodes, every metric finite
      and in range; an ``agent_train`` JSON line;
@@ -158,13 +166,36 @@ Phases (any failure exits nonzero, nothing is caught):
      ``evaluate_model(mesh=)`` over phase 6's viewpoints equal to the
      one-process eval; ``episode_metrics`` and ``evaluate_batched`` with
      the mesh over phase 8's 16 episodes equal to the one-process run's;
-     the group destroyed.  Then the ``kernels`` line and the script's
-     total time.
+     the group destroyed;
+  11. the temporal VER model (get_occ.py / vocc.py widths with
+     use_temporal_self_attn, seed 0): ``obtain_history_bev`` over 3
+     frames of 4 viewpoints walking straight lines, then the current
+     frame's only_bev forward with prev_bev and the derived tsa_shift, 3
+     launches a frame, held against the CPU on 2 of the viewpoints; the
+     full forward with decoder_on_bev (mlp, then pool) at batch 2 on that
+     history, 3 + 6 launches, timed at the full grid and held against the
+     CPU on the 0.2 m grid; one TSA + decoder_on_bev (mlp) train step held
+     against a CPU step as phase 7 holds its own (9 + 9 launches, every
+     TSA parameter with a gradient), then timed steps at batch 1.  Each
+     rate is timed over back-to-back calls for at least RATE_WINDOW_S, the
+     inputs on the card before the window opens;
+  12. BEVFormer-2D at BEV2DConfig's defaults (seed 2) over synthetic
+     nuScenes scenes of 3 frames (a 3-degree yaw change a frame, so
+     rotate_prev_bev turns the previous grid) read through NuScenesAdapter
+     (the info pkl under TMPDIR, the features in an in-memory stand-in for
+     h5py) and collated on the host, timed apart: each frame's full
+     forward with the previous frame's bev_embed at batch 1 and 4, 12
+     launches a frame, against the CPU, the chains timed as phase 11's
+     rates; one backward of a scalar of the last frame's outputs at batch
+     1 (history frames without gradients, 12 backward launches), card
+     gradients against the CPU's.
+     Then the ``kernels`` line and the script's total time.
 The last line is the ``{"ok": true, "device": ...}`` JSON object.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -220,6 +251,27 @@ SERVE_OCC_BATCH = 2
 # phase 10's rates: a backlog of requests drawn from phase 4's viewpoints,
 # a quarter of them image requests, then lone requests of each kind
 SERVE_RATE_REQUESTS, SERVE_RATE_IMAGE_SHARE, SERVE_LONE = 256, 0.25, 3
+# phase 11: the temporal model's history (frames before the current one)
+# and batch; its CPU hold runs the first TEMPORAL_CPU_ROWS viewpoints (each
+# viewpoint's computation is its own); train steps timed at batch 1
+TEMPORAL_FRAMES, TEMPORAL_BATCH, TEMPORAL_CPU_ROWS = 3, 4, 2
+# phase 12: BEVFormer-2D over synthetic nuScenes scenes of 3 frames, a yaw
+# change of this many degrees a frame (so rotate_prev_bev turns the grid)
+BEV2D_FRAMES, BEV2D_BATCHES, BEV2D_YAW_DEG = 3, (1, 4), 3.0
+# phases 11 and 12 time each rate over back-to-back calls of the warm
+# path, inputs already on the card, for at least this many seconds
+RATE_WINDOW_S = 1.0
+# phases 3 and 5: the launches of phases 11 and 12 at full width:
+# (name, bs, H, W, d, nq, P); the temporal model's SCA has the main shape
+PATH_SHAPES = [
+    ("decoder_on_bev B=2", 2, 15, 15, 96, 100, 4),
+    ("bev2d SCA B=1", 6, 14, 14, 32, 225, 8),
+    ("bev2d TSA-2D B=1", 2, 15, 15, 32, 225, 4),
+    ("bev2d decoder B=1", 1, 15, 15, 32, 100, 4),
+    ("bev2d SCA B=4", 24, 14, 14, 32, 225, 8),
+    ("bev2d TSA-2D B=4", 8, 15, 15, 32, 225, 4),
+    ("bev2d decoder B=4", 4, 15, 15, 32, 100, 4),
+]
 
 
 def fail(msg: str) -> None:
@@ -347,6 +399,22 @@ def time_ms(fn, iters=200, warmup=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def timed_window(fn, min_s=RATE_WINDOW_S):
+    """Calls the warm ``fn`` back to back, synchronising after each call,
+    until at least ``min_s`` seconds of wall time have passed; returns
+    (calls, seconds)."""
+    import torch
+    torch.cuda.synchronize()
+    calls, t0 = 0, time.perf_counter()
+    while True:
+        fn()
+        torch.cuda.synchronize()
+        calls += 1
+        secs = time.perf_counter() - t0
+        if secs >= min_s:
+            return calls, secs
 
 
 def time_graph_ms(fn, launches=50, replays=20):
@@ -657,15 +725,11 @@ def training(ver, samples, card):
     from torch.profiler import ProfilerActivity, profile
 
     from vln_ver_tpu_torch.config import build_train_config, load_config
-    from vln_ver_tpu_torch.data import synthetic_samples
     from vln_ver_tpu_torch.data.mp3d import collate
     from vln_ver_tpu_torch.models import build_model
     from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
-    from vln_ver_tpu_torch.runtime import fp32_precision
     from vln_ver_tpu_torch.train import (create_train_state, make_train_step,
                                          staged_batches, to_device)
-    from vln_ver_tpu_torch.train.objective import detection_matches
-    from vln_ver_tpu_torch.utils.params import grads_by_name, relu_masks
 
     dev = torch.device("cuda")
     cfg = load_config(os.path.join(REPO, "configs/verformer/vocc.py"))
@@ -771,6 +835,7 @@ def training(ver, samples, card):
           f"events in step_fn): forward {spans[0]:.3f} ms, losses and "
           f"matching {spans[1]:.3f} ms, backward {spans[2]:.3f} ms, clip and "
           f"AdamW {spans[3]:.3f} ms, total {sum(spans):.3f} ms [{card}]")
+    norm_cost(model, "the vocc.py model", card)
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -798,6 +863,92 @@ def training(ver, samples, card):
     # CPU's full-grid upsampler takes minutes)
     check = dataclasses.replace(ver, occupancy_size=(0.2, 0.2, 0.2),
                                 dropout_rate=0.0)
+    step_card_vs_cpu(check, tc, "vocc.py widths", card)
+    return fwd, bwd, remat_and_capacity(ver, tc, batches[0], card)
+
+
+def norm_cost(model, what, card):
+    """The clip's global norm as the trainers take it
+    (``train.state.global_norm``: each tensor's norm in float64) against
+    the fp32 form, on gradient-shaped tensors of ``model``'s parameters:
+    ms a call (CUDA events over 50 calls) and the CUDA kernels one call
+    launches (the fused multi-tensor route launches a few for all the
+    tensors, a per-tensor route at least one a tensor)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from vln_ver_tpu_torch.train.state import global_norm
+    gen = torch.Generator("cuda").manual_seed(0)
+    grads = [torch.randn(p.shape, device="cuda", generator=gen)
+             for p in model.parameters() if p.requires_grad]
+    out = {}
+    for name, fn in (
+            ("float64", lambda: global_norm(grads)),
+            ("fp32", lambda: torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads))))):
+        ms = time_ms(fn, iters=50, warmup=5)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = sum(e.count for e in prof.key_averages()
+                      if str(getattr(e, "device_type", "")).endswith("CUDA"))
+        out[name] = (ms, kernels or "not recorded (no device event)")
+    a, b = float(global_norm(grads)), float(torch.linalg.vector_norm(
+        torch.stack(torch._foreach_norm(grads))))
+    print(f"global norm of {what}'s {len(grads)} gradient tensors: float64 "
+          f"sums {out['float64'][0]:.4f} ms, kernels {out['float64'][1]}; "
+          f"fp32 sums {out['fp32'][0]:.4f} ms, kernels {out['fp32'][1]}; "
+          f"relative difference {abs(a - b) / b:.3e} [{card}]")
+    return out
+
+
+def off_lattice(model, seed=5):
+    """Move every temporal self-attention's sampling offsets off the
+    lattice, in place: uniform(-0.25, 0.25) added to the offsets' bias,
+    drawn on the CPU from ``seed``.  At init the offsets' kernel is zero
+    and the bias a directional grid of whole steps, and the TSA's
+    reference points are cell centres, so every sample lands on a
+    lattice point, where bilinear and trilinear interpolation have no
+    derivative (the left and right ones differ by a whole tap's value)
+    and two devices' rounding picks either side; a trained model's
+    offsets are off the lattice.  Returns the model."""
+    import torch
+
+    from vln_ver_tpu_torch.models.bev2d import TemporalSelfAttention2D
+    from vln_ver_tpu_torch.models.temporal import VoxelTemporalSelfAttention
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, (VoxelTemporalSelfAttention,
+                              TemporalSelfAttention2D)):
+                b = m.sampling_offsets.bias
+                b += (torch.rand(b.shape, generator=gen) * 0.5 - 0.25).to(
+                    b.device)
+    return model
+
+
+def step_card_vs_cpu(check, tc, what, card):
+    """One ``make_train_step`` of ``check`` (dropout off) on the card
+    against one on the CPU: the same seed-0 weights (a TSA's offsets
+    moved off the lattice, :func:`off_lattice`) and synthetic batch of
+    one viewpoint, the exact host matcher, the card's ReLUs on the CPU
+    step's masks.  Fails unless the matched queries are equal, the losses
+    within rtol 1e-4 and every gradient within 1e-3 of its L2 norm (plus
+    1e-5 x sqrt(n)); returns (the card step's forward and backward kernel
+    launches, the card's gradients by name)."""
+    import torch
+
+    from vln_ver_tpu_torch.data import synthetic_samples
+    from vln_ver_tpu_torch.data.mp3d import collate
+    from vln_ver_tpu_torch.models import build_model
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    from vln_ver_tpu_torch.runtime import fp32_precision
+    from vln_ver_tpu_torch.train import (create_train_state, make_train_step,
+                                         to_device)
+    from vln_ver_tpu_torch.train.objective import detection_matches
+    from vln_ver_tpu_torch.utils.params import grads_by_name, relu_masks
+
+    dev = torch.device("cuda")
     grid = (check.occ_zdim, check.occ_ydim, check.occ_xdim)
     one = collate(synthetic_samples(
         1, 1, num_cams=check.num_cams, feat_hw=check.feat_h,
@@ -811,7 +962,7 @@ def training(ver, samples, card):
     masks, res = [], {}
     for device in (torch.device("cpu"), dev):
         t0 = time.perf_counter()
-        m = build_model(check, device, seed=0)
+        m = off_lattice(build_model(check, device, seed=0))
         bb = to_device(one, device)
         with torch.no_grad(), fp32_precision(check.dtype):
             outs = m.train()(bb["features"], bb["world2pixel"],
@@ -820,14 +971,17 @@ def training(ver, samples, card):
                                         outs["all_bbox_preds"], bb, "host")
         st = create_train_state(m, tc_host)
         cpu = device.type == "cpu"
+        KERNEL.launches = KERNEL_BWD.launches = 0
         with relu_masks(m, record=masks if cpu else None,
                         pin=None if cpu else masks) as flips:
             mets = make_train_step(check, tc_host)(st, bb, seed=1)
         res[device.type] = (matched.cpu(),
                             {k: float(v) for k, v in mets.items()},
                             {n: g.cpu() for n, g in grads_by_name(m).items()},
-                            time.perf_counter() - t0, flips[0])
-    (mc, lc, gc, _, flips), (mh, lh, gh, cpu_s, _) = res["cuda"], res["cpu"]
+                            time.perf_counter() - t0, flips[0],
+                            (KERNEL.launches, KERNEL_BWD.launches))
+    (mc, lc, gc, _, flips, launches), (mh, lh, gh, cpu_s, _, _) = (
+        res["cuda"], res["cpu"])
     print(f"train step card vs CPU: ReLU masks of the CPU step pinned on the "
           f"card, {flips} of {sum(int(x.numel()) for x in masks)} elements "
           f"where the card's own mask differs")
@@ -838,14 +992,12 @@ def training(ver, samples, card):
              f"{mh.tolist()}); the tolerances below assume equal matches")
     worst_loss = worst_relative(lc, lh)
     bad = [k for k in lh if abs(lc[k] - lh[k]) > 1e-4 * abs(lh[k]) + 1e-7]
-    print(f"train step card vs CPU (vocc.py widths, occupancy grid {grid}, "
+    print(f"train step card vs CPU ({what}, occupancy grid {grid}, "
           f"host matcher): matched queries equal ({mc.numel()} GT slots), "
           f"largest relative loss difference {worst_loss[0]:.3e} "
           f"({worst_loss[1]}) (rtol 1e-4) "
           f"{'ok' if not bad else 'FAIL ' + str(bad)}; grad_norm card "
           f"{lc['grad_norm']:.6f}, CPU {lh['grad_norm']:.6f}")
-    if bad:
-        fail(f"card train losses disagree with the CPU step: {bad}")
     worst, failed = (0.0, None), []
     for n, g_cpu in gh.items():
         diff = float(torch.linalg.vector_norm((gc[n] - g_cpu).double()))
@@ -855,14 +1007,16 @@ def training(ver, samples, card):
             failed.append(n)
         if ref > 0 and rel > worst[0]:
             worst = (rel, n)
-    print(f"train step gradients card vs CPU: {len(gh)} parameters, worst "
-          f"relative L2 difference {worst[0]:.3e} ({worst[1]}) (within "
+    print(f"train step gradients card vs CPU ({what}): {len(gh)} parameters, "
+          f"worst relative L2 difference {worst[0]:.3e} ({worst[1]}) (within "
           f"1e-3 relative + 1e-5 x sqrt(n)) "
           f"{'ok' if not failed else 'FAIL ' + str(failed[:5])}; the CPU "
-          f"step took {cpu_s:.2f}s")
-    if failed:
-        fail(f"card gradients disagree with the CPU step: {failed[:5]}")
-    return fwd, bwd, remat_and_capacity(ver, tc, batches[0], card)
+          f"step took {cpu_s:.2f}s; the card step's deform launches "
+          f"{launches[0]} forward + {launches[1]} backward")
+    if bad or failed:
+        fail(f"card train losses {bad} or gradients {failed[:5]} disagree "
+             f"with the CPU step")
+    return launches, gc
 
 
 def worst_relative(got, ref):
@@ -1801,6 +1955,7 @@ def agent_training(cfg, episodes, graphs, vols, card):
         "included where the buffer runs short)", card)
     step += DAGGER_UPDATE_BATCH
     del updates, before
+    norm_cost(policy, "the policy", card)
 
     # -- the handoff: save_model -> load_model -> evaluate_batched -------
     with tempfile.TemporaryDirectory() as root:
@@ -2175,8 +2330,9 @@ def _free_port() -> int:
 
 
 class _MemoryH5:
-    """The part of ``h5py.File`` that ``dump_volumes`` uses, in memory (the
-    card's machine need not have h5py): ``files[path][key]`` is a volume."""
+    """The part of ``h5py.File`` that ``dump_volumes`` and
+    ``NuScenesAdapter`` use, in memory (the card's machine need not have
+    h5py): ``files[path][key]`` is an array."""
     files = {}
 
     def __init__(self, path, mode="r"):
@@ -2194,11 +2350,29 @@ class _MemoryH5:
     def __contains__(self, key):
         return key in self.data
 
+    def __getitem__(self, key):
+        return self.data[key]
+
     def __delitem__(self, key):
         del self.data[key]
 
     def create_dataset(self, name, data, **_):
         self.data[name] = np.array(data)
+
+
+@contextlib.contextmanager
+def memory_h5():
+    """``import h5py`` gives :class:`_MemoryH5` inside the block."""
+    import types
+    saved = sys.modules.get("h5py")
+    sys.modules["h5py"] = types.SimpleNamespace(File=_MemoryH5)
+    try:
+        yield
+    finally:
+        if saved is None:
+            del sys.modules["h5py"]
+        else:
+            sys.modules["h5py"] = saved
 
 
 def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
@@ -2207,8 +2381,6 @@ def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
     dumps, mesh train step and mesh eval.  The lift runs on a view shard
     of the world group (index 0 of 1), so its all-reduces of the slot sums
     and hit counts, and of the sparse lift's overflow, run under NCCL."""
-    import types
-
     import torch
 
     from vln_ver_tpu_torch.agent.env import R2REnv
@@ -2251,16 +2423,9 @@ def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
             lift.shard_views(views)
             path = f"mesh_{name}.hdf5"
             KERNEL.launches = KERNEL_BWD.launches = 0
-            saved = sys.modules.get("h5py")
-            sys.modules["h5py"] = types.SimpleNamespace(File=_MemoryH5)
-            try:
+            with memory_h5():
                 res = dump_volumes(make_bev_only(lift), dataset, ver, path,
                                    batch_size=BATCH, device=dev, mesh=mesh)
-            finally:
-                if saved is None:
-                    del sys.modules["h5py"]
-                else:
-                    sys.modules["h5py"] = saved
             got = _MemoryH5.files.pop(path)
             err = max(float(np.abs(got[f"vp{i:02d}"] - dense_vols[i]).max())
                       for i in range(N_VIEWPOINTS))
@@ -2342,6 +2507,424 @@ def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
     return fwd, bwd
 
 
+def path_shape_timing(card):
+    """Phase 5 at the launches of phases 11 and 12 (PATH_SHAPES), fp32:
+    each kernel's graph time against its plain version, its bound and its
+    shared-memory floor, and the bf16 graph times.  Returns {shape name:
+    numbers}."""
+    import torch
+
+    from vln_ver_tpu_torch.ops.deform_attn import ms_deform_attn_2d
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    dev = torch.device("cuda")
+    out = {}
+    for i, (name, bs, H, W, d, nq, P) in enumerate(PATH_SHAPES):
+        hw = ((H, W),)
+        r = {}
+        for dt in (torch.float32, torch.bfloat16):
+            v, loc, w = deform_inputs(bs, H * W, 8, d, nq, P, dt, 30 + i, dev)
+            g = grad_out_like(bs, nq, 8, d, dt, 40 + i, dev)
+            with torch.inference_mode():
+                ms = time_graph_ms(lambda: KERNEL(v, hw, loc, w))
+            bwd_ms = time_graph_ms(lambda: KERNEL_BWD(v, hw, loc, w, g))
+            if dt is torch.bfloat16:
+                r.update(ms_bf16=ms, bwd_ms_bf16=bwd_ms)
+                continue
+            with torch.inference_mode():
+                plain_ms = time_ms(lambda: ms_deform_attn_2d(v, hw, loc, w),
+                                   iters=20, warmup=3)
+            ins = [t.detach().requires_grad_() for t in (v, loc, w)]
+            o = ms_deform_attn_2d(ins[0], hw, ins[1], ins[2])
+            bwd_plain_ms = time_ms(lambda: torch.autograd.grad(
+                o, ins, g, retain_graph=True), iters=20, warmup=3)
+            del o, ins
+            bound_ms, bound_by = deform_bound(v, loc, w, (H, W))
+            bwd_bound_ms, bwd_bound_by = deform_bwd_bound(v, loc, w, (H, W))
+            r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                     bound_by=bound_by,
+                     smem_floor_ms=smem_floor_ms(v, loc, (H, W)),
+                     bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
+                     bwd_bound_ms=bwd_bound_ms, bwd_bound_by=bwd_bound_by,
+                     bwd_smem_floor_ms=smem_floor_ms(v, loc, (H, W),
+                                                     backward=True))
+        out[name] = r
+        print(f"deform_attn_2d {name} (bs={bs}, {H}x{W}, d={d}, nq={nq}, "
+              f"P={P}): kernel {r['ms']:.4f} ms (graph; bf16 "
+              f"{r['ms_bf16']:.4f}), plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}), "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound, "
+              f"shared-memory floor {r['smem_floor_ms']:.4f} ms; backward "
+              f"{r['bwd_ms']:.4f} ms (bf16 {r['bwd_ms_bf16']:.4f}), plain "
+              f"{r['bwd_plain_ms']:.4f} ms, bound {r['bwd_bound_ms']:.4f} ms "
+              f"({r['bwd_bound_by']}), "
+              f"{100 * r['bwd_bound_ms'] / r['bwd_ms']:.1f}% of bound, "
+              f"shared-memory floor {r['bwd_smem_floor_ms']:.4f} ms [{card}]")
+    return out
+
+
+def _moving_viewpoints(cfg, n, t_len, seed):
+    """(features, world2pixel, origin_shift) queues (n, t_len, ...): each
+    viewpoint walks a straight line at up to 0.5 m a frame, six cameras
+    around it."""
+    from vln_ver_tpu_torch.geometry import make_pinhole_world2pixel
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal(
+        (n, t_len, cfg.num_cams, cfg.feat_h, cfg.feat_w,
+         cfg.in_channels)).astype(np.float32)
+    start = rng.uniform(-1.0, 1.0, (n, 1, 3)) * np.array([1, 1, 0.3])
+    step = rng.uniform(-0.5, 0.5, (n, 1, 3)) * np.array([1, 1, 0.1])
+    pos = (start + step * np.arange(t_len)[None, :, None]).astype(np.float32)
+    w2p = np.stack([[np.stack([
+        make_pinhole_world2pixel(70.0, deg * 360.0 / cfg.num_cams, p)
+        for deg in range(cfg.num_cams)]) for p in row] for row in pos])
+    return feats, w2p.astype(np.float32), pos
+
+
+def temporal_path(ver, samples, card):
+    """Phase 11: the temporal VER model (TSA) at get_occ.py / vocc.py
+    widths and its decoder_on_bev head; returns the launches of its runs
+    and its numbers."""
+    import itertools
+
+    import torch
+
+    from vln_ver_tpu_torch.config import build_train_config, load_config
+    from vln_ver_tpu_torch.data.mp3d import collate
+    from vln_ver_tpu_torch.models import build_model
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    from vln_ver_tpu_torch.train import (create_train_state, make_train_step,
+                                         to_device)
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    tsa = dataclasses.replace(ver, use_temporal_self_attn=True)
+    frames = TEMPORAL_FRAMES + 1
+    feats, w2p, pos = _moving_viewpoints(tsa, TEMPORAL_BATCH, frames, 11)
+    extent = (np.asarray(tsa.pc_range[3:], np.float32)
+              - np.asarray(tsa.pc_range[:3], np.float32))
+    shift = (pos[:, -1] - pos[:, -2]) / extent
+
+    def staged(device, rows):
+        """The history queues, the current frame and the shift of the
+        first ``rows`` viewpoints on ``device``."""
+        def t(a):
+            return torch.from_numpy(np.ascontiguousarray(a[:rows])).to(device)
+        return ([t(a[:, :-1]) for a in (feats, w2p, pos)],
+                [t(a[:, -1]) for a in (feats, w2p, pos)], t(shift))
+
+    def history_run(model, inputs):
+        """obtain_history_bev over the first frames, then the current
+        frame's only_bev forward with prev_bev and the derived shift."""
+        queues, current, tsa_shift = inputs
+        prev = model.obtain_history_bev(*queues)
+        with torch.inference_mode():
+            cur = model(*current, prev_bev=prev, tsa_shift=tsa_shift,
+                        only_bev=True)["bev_embed"]
+        return prev, cur
+
+    model = build_model(tsa, dev, seed=0)
+    inputs = staged(dev, TEMPORAL_BATCH)
+    history_run(model, inputs)                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    KERNEL.launches = KERNEL_BWD.launches = 0
+    last = []
+    calls, hist_s = timed_window(
+        lambda: last.__setitem__(slice(None), history_run(model, inputs)))
+    prev, cur = last
+    launches = {"history": KERNEL.launches}
+    want = tsa.encoder_layers * frames * calls
+    if KERNEL.launches != want or KERNEL_BWD.launches:
+        fail(f"the history runs launched the kernels {KERNEL.launches} and "
+             f"{KERNEL_BWD.launches} times, expected {tsa.encoder_layers} "
+             f"x {frames} frames x {calls} runs and none")
+    hist_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    hist_rate = TEMPORAL_BATCH * frames * calls / hist_s
+    del model, inputs
+    t0 = time.perf_counter()
+    cpu_prev, cpu_cur = history_run(build_model(tsa, "cpu", seed=0),
+                                    staged("cpu", TEMPORAL_CPU_ROWS))
+    cpu_s = time.perf_counter() - t0
+    for name, got, ref in (("history bev (frame 3)", prev, cpu_prev),
+                           ("current frame bev_embed", cur, cpu_cur)):
+        err, ok = close(got[:TEMPORAL_CPU_ROWS].float().cpu(), ref, 1e-4,
+                        1e-4)
+        print(f"temporal {name} card vs CPU ({TEMPORAL_CPU_ROWS} of "
+              f"{TEMPORAL_BATCH} viewpoints, {TEMPORAL_FRAMES} history "
+              f"frames, moving origins): max_abs_err={err:.3e} (rtol=1e-4, "
+              f"atol=1e-4) {'ok' if ok else 'FAIL'}")
+        if not ok or not bool(torch.isfinite(got).all()):
+            fail(f"the temporal {name} disagrees with the CPU run")
+    print(f"temporal history run: {calls} runs of {TEMPORAL_BATCH} "
+          f"viewpoints x {frames} frames (inputs on the card) in "
+          f"{hist_s:.4f}s = {hist_rate:.2f} viewpoint frames/s, peak device "
+          f"memory {hist_peak:.1f} MiB, deform launches "
+          f"{launches['history']}; the CPU took {cpu_s:.2f}s [{card}]")
+
+    # the full forward with decoder_on_bev at the eval batch, on the
+    # history's last two viewpoints: timed at the full grid, held against
+    # the CPU on the 0.2 m grid
+    rows = slice(0, EVAL_BATCH)
+    inputs = [torch.from_numpy(np.ascontiguousarray(a[rows, -1]))
+              for a in (feats, w2p, pos)]
+    extra = dict(prev_bev=prev[rows].float().cpu(),
+                 tsa_shift=torch.from_numpy(shift[rows]))
+    numbers = {}
+    launches["decoder_on_bev"] = 0
+    for kind in ("mlp", "pool"):
+        cfg = dataclasses.replace(tsa, decoder_on_bev=True,
+                                  voxel_2_bev_type=kind)
+        model = build_model(cfg, dev, seed=0)
+        args = [t.to(dev) for t in inputs]
+        kw = {k: v.to(dev) for k, v in extra.items()}
+        last = {}
+        with torch.inference_mode():
+            model(*args, **kw)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            KERNEL.launches = KERNEL_BWD.launches = 0
+            calls, fwd_s = timed_window(
+                lambda: last.update(model(*args, **kw)))
+        want = tsa.encoder_layers + tsa.decoder_layers
+        if KERNEL.launches != want * calls \
+                or KERNEL.last_nq != tsa.num_query or KERNEL_BWD.launches:
+            fail(f"the decoder_on_bev={kind} forwards launched the kernels "
+                 f"{KERNEL.launches} (last nq {KERNEL.last_nq}) and "
+                 f"{KERNEL_BWD.launches} times, expected {want} x {calls} "
+                 f"forwards and none")
+        launches["decoder_on_bev"] += KERNEL.launches
+        for k in ("all_cls_scores", "all_bbox_preds", "occupancy_preds"):
+            if not bool(torch.isfinite(last[k]).all()):
+                fail(f"non-finite {k} with decoder_on_bev={kind}")
+        numbers[f"decoder_on_bev_{kind}_viewpoints_per_s"] = (
+            EVAL_BATCH * calls / fwd_s)
+        numbers[f"decoder_on_bev_{kind}_peak_mib"] = (
+            torch.cuda.max_memory_allocated() / 2 ** 20)
+        del model, last
+        check = dataclasses.replace(cfg, occupancy_size=(0.2, 0.2, 0.2))
+        with torch.inference_mode():
+            card1 = build_model(check, dev, seed=0)(*args, **kw)
+            t0 = time.perf_counter()
+            cpu1 = build_model(check, "cpu", seed=0)(*inputs, **extra)
+            cpu_s = time.perf_counter() - t0
+        for k, atol in (("bev_embed", 1e-4), ("all_cls_scores", 1e-4),
+                        ("all_bbox_preds", 1e-4), ("occupancy_preds", 5e-4)):
+            err, ok = close(card1[k].cpu(), cpu1[k], 1e-4, atol)
+            print(f"decoder_on_bev={kind} {k} card vs CPU ({EVAL_BATCH} "
+                  f"viewpoints with prev_bev and tsa_shift, occupancy grid "
+                  f"{(check.occ_zdim, check.occ_ydim, check.occ_xdim)}): "
+                  f"max_abs_err={err:.3e} (rtol=1e-4, atol={atol}) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok:
+                fail(f"card {k} disagrees with the CPU run "
+                     f"(decoder_on_bev={kind})")
+        print(f"decoder_on_bev={kind} full forward: "
+              f"{numbers[f'decoder_on_bev_{kind}_viewpoints_per_s']:.3f} "
+              f"viewpoints/s at batch {EVAL_BATCH} ({calls} forwards in "
+              f"{fwd_s:.4f}s, inputs on the card, full grid), peak device "
+              f"memory {numbers[f'decoder_on_bev_{kind}_peak_mib']:.1f} MiB, "
+              f"deform launches {want} a forward; the CPU forward took "
+              f"{cpu_s:.2f}s [{card}]")
+
+    # training: a TSA + decoder_on_bev=mlp step held against the CPU, then
+    # timed steps at the full grid
+    cfg = load_config(os.path.join(REPO, "configs/verformer/vocc.py"))
+    tc = build_train_config(cfg, len(samples))
+    train_cfg = dataclasses.replace(tsa, decoder_on_bev=True)
+    (fwd, bwd), grads = step_card_vs_cpu(
+        dataclasses.replace(train_cfg, occupancy_size=(0.2, 0.2, 0.2),
+                            dropout_rate=0.0), tc,
+        "TSA + decoder_on_bev=mlp, vocc.py widths", card)
+    want = tsa.encoder_layers + tsa.decoder_layers
+    if (fwd, bwd) != (want, want):
+        fail(f"the TSA + decoder_on_bev step launched the kernels {fwd} and "
+             f"{bwd} times, expected {want} each")
+    dead = [n for n, g in grads.items() if "encoder.layers" in n
+            and ".attentions.0." in n and not bool(g.any())]
+    if dead:
+        fail(f"TSA parameters without a gradient: {dead[:5]}")
+    launches["train"] = (fwd, bwd)
+    model = build_model(train_cfg, dev, seed=0)
+    state = create_train_state(model, tc)
+    step_fn = make_train_step(train_cfg, tc)
+    batches = [to_device(collate([s_]), dev) for s_ in samples]
+    step_fn(state, batches[0], seed=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    cycle = itertools.cycle(batches)
+    steps, train_s = timed_window(lambda: step_fn(state, next(cycle),
+                                                  seed=1))
+    numbers.update(
+        history_frames_per_s=hist_rate,
+        history_peak_mib=hist_peak,
+        train_steps_per_s=steps / train_s,
+        train_peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
+        seconds=time.perf_counter() - t_phase)
+    print(f"TSA + decoder_on_bev=mlp train: {steps} steps in {train_s:.4f}s "
+          f"= {numbers['train_steps_per_s']:.3f} steps/s at batch 1 (batches "
+          f"on the card, full grid), peak device memory "
+          f"{numbers['train_peak_mib']:.1f} MiB, {len(dead)} TSA parameters "
+          f"without a gradient; phase 11 took {numbers['seconds']:.2f}s "
+          f"[{card}]")
+    return launches, numbers
+
+
+def bev2d_path(card):
+    """Phase 12: BEVFormer-2D at BEV2DConfig's defaults over synthetic
+    nuScenes scenes, read through NuScenesAdapter from an info pkl under
+    TMPDIR and features in an in-memory stand-in for h5py; returns its
+    launches and numbers."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from vln_ver_tpu_torch.data.nuscenes import (NuScenesAdapter, collate,
+                                                 synthetic_nuscenes)
+    from vln_ver_tpu_torch.models.bev2d import BEV2DConfig, build_bev2d
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    from vln_ver_tpu_torch.utils.params import grads_by_name, relu_masks
+
+    dev = torch.device("cuda")
+    t_phase = time.perf_counter()
+    cfg = BEV2DConfig()
+    scenes = max(BEV2D_BATCHES)
+    infos, feats = synthetic_nuscenes(
+        scenes, BEV2D_FRAMES, cfg.num_cams, cfg.feat_h, cfg.in_channels,
+        seed=3)
+    for i, info in enumerate(infos):
+        info["can_bus"][-1] = BEV2D_YAW_DEG * (i % BEV2D_FRAMES)
+    root = tempfile.mkdtemp(prefix="bev2d_")
+    ann = os.path.join(root, "nusc_infos.pkl")
+    with open(ann, "wb") as f:
+        pickle.dump(infos, f)
+    data = NuScenesAdapter(ann, root, num_cams=cfg.num_cams,
+                           feat_hw=cfg.feat_h)
+    _MemoryH5.files[data.feature_file] = feats
+    with memory_h5():
+        # every frame read and collated on the host once, timed apart
+        t0 = time.perf_counter()
+        host = {batch: [collate([data[s * BEV2D_FRAMES + t]
+                                 for s in range(batch)])
+                        for t in range(BEV2D_FRAMES)]
+                for batch in BEV2D_BATCHES}
+        read_s = time.perf_counter() - t0
+    _MemoryH5.files.pop(data.feature_file)
+    shutil.rmtree(root)
+    n_read = sum(BEV2D_BATCHES) * BEV2D_FRAMES
+    numbers = {"host_read_collate_ms_a_frame": 1e3 * read_s / n_read}
+    print(f"bev2d input: {n_read} nuScenes samples read through "
+          f"NuScenesAdapter and collated in {read_s:.4f}s = "
+          f"{numbers['host_read_collate_ms_a_frame']:.3f} ms a sample "
+          f"(host, outside the timed windows)")
+    per_frame = 2 * cfg.encoder_layers + cfg.decoder_layers
+
+    def frames(batch, device):
+        """Each frame's model inputs at ``batch`` on ``device``."""
+        return [[torch.from_numpy(b[k]).to(device) for k in (
+            "features", "world2pixel", "origin_shift", "can_bus")]
+            for b in host[batch]]
+
+    @torch.inference_mode()
+    def chain(model, inputs):
+        """Each frame's full forward with the previous frame's bev_embed
+        in the TSA queue."""
+        prev = None
+        for f, w, o, c in inputs:
+            outs = model(f, w, o, can_bus=c, prev_bev=prev)
+            prev = outs["bev_embed"]
+        return outs
+
+    model = off_lattice(build_bev2d(cfg, dev, seed=2))
+    cpu_model = off_lattice(build_bev2d(cfg, "cpu", seed=2))
+    launches = {}
+    for batch in BEV2D_BATCHES:
+        inputs = frames(batch, dev)
+        chain(model, inputs)                          # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        KERNEL.launches = KERNEL_BWD.launches = 0
+        last = {}
+        calls, secs = timed_window(lambda: last.update(chain(model, inputs)))
+        outs = last
+        n = KERNEL.launches
+        if n != per_frame * BEV2D_FRAMES * calls or KERNEL_BWD.launches:
+            fail(f"BEVFormer2D launched the kernels {n} and "
+                 f"{KERNEL_BWD.launches} times over {calls} chains of "
+                 f"{BEV2D_FRAMES} frames, expected {per_frame} a frame and "
+                 f"none")
+        launches[f"b{batch}"] = n
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        t0 = time.perf_counter()
+        ref = chain(cpu_model, frames(batch, "cpu"))
+        cpu_s = time.perf_counter() - t0
+        for k in ("bev_embed", "all_cls_scores", "all_bbox_preds"):
+            err, ok = close(outs[k].detach().cpu(), ref[k].detach(), 1e-4,
+                            1e-4)
+            print(f"bev2d {k} card vs CPU (batch {batch}, frame "
+                  f"{BEV2D_FRAMES} of a prev_bev chain with rotate_prev_bev)"
+                  f": max_abs_err={err:.3e} (rtol=1e-4, atol=1e-4) "
+                  f"{'ok' if ok else 'FAIL'}")
+            if not ok or not bool(torch.isfinite(outs[k]).all()):
+                fail(f"the BEVFormer2D {k} disagrees with the CPU run")
+        rate = batch * BEV2D_FRAMES * calls / secs
+        numbers[f"frames_per_s_b{batch}"] = rate
+        numbers[f"peak_mib_b{batch}"] = peak
+        print(f"bev2d chain: {calls} chains of {batch} x {BEV2D_FRAMES} "
+              f"frames (inputs on the card) in {secs:.4f}s = {rate:.2f} "
+              f"frames/s at batch {batch}, peak device memory {peak:.1f} "
+              f"MiB, deform launches {n}; the CPU took {cpu_s:.2f}s [{card}]")
+
+    # one backward of a scalar of the last frame's outputs at batch 1, the
+    # card's ReLUs on the CPU run's masks
+    masks, res = [], {}
+    for m, device in ((cpu_model, "cpu"), (model, dev)):
+        m.zero_grad(set_to_none=True)
+        inputs = frames(1, device)
+        KERNEL.launches = KERNEL_BWD.launches = 0
+        cpu = device == "cpu"
+        prev = None
+        for f, w, o, c in inputs[:-1]:
+            with torch.no_grad():
+                prev = m(f, w, o, can_bus=c, prev_bev=prev)["bev_embed"]
+        f, w, o, c = inputs[-1]
+        with relu_masks(m, record=masks if cpu else None,
+                        pin=None if cpu else masks):
+            outs = m(f, w, o, can_bus=c, prev_bev=prev)
+        loss = (outs["all_cls_scores"].square().mean()
+                + outs["all_bbox_preds"].square().mean())
+        loss.backward()
+        res[str(device)] = ({n_: g.cpu() for n_, g in
+                             grads_by_name(m).items()},
+                            (KERNEL.launches, KERNEL_BWD.launches))
+    (gh, _), (gc, (fwd, bwd)) = res["cpu"], res[str(dev)]
+    if (fwd, bwd) != (per_frame * BEV2D_FRAMES, per_frame):
+        fail(f"the BEVFormer2D backward run launched the kernels {fwd} and "
+             f"{bwd} times, expected {per_frame * BEV2D_FRAMES} and "
+             f"{per_frame} (history frames launch no backward)")
+    launches["backward"] = (fwd, bwd)
+    worst, failed = (0.0, None), []
+    for n_, g_cpu in gh.items():
+        diff = float(torch.linalg.vector_norm((gc[n_] - g_cpu).double()))
+        norm = float(torch.linalg.vector_norm(g_cpu.double()))
+        if diff > 1e-3 * norm + 1e-5 * g_cpu.numel() ** 0.5:
+            failed.append(n_)
+        if norm > 0 and diff / norm > worst[0]:
+            worst = (diff / norm, n_)
+    print(f"bev2d gradients card vs CPU (batch 1, a scalar of frame "
+          f"{BEV2D_FRAMES}'s outputs, history frames without gradients): "
+          f"{len(gh)} parameters, worst relative L2 difference "
+          f"{worst[0]:.3e} ({worst[1]}) (within 1e-3 relative + 1e-5 x "
+          f"sqrt(n)), deform launches {fwd} forward + {bwd} backward "
+          f"{'ok' if not failed else 'FAIL ' + str(failed[:5])}")
+    if failed:
+        fail(f"BEVFormer2D card gradients disagree with the CPU: "
+             f"{failed[:5]}")
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"bev2d phase: {numbers['seconds']:.2f}s [{card}]")
+    return launches, numbers
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -2397,7 +2980,7 @@ def main() -> None:
     # -- phase 3: kernel vs plain version --------------------------------
     heads, d, P = 8, 96, 8
     f32, bf16 = torch.float32, torch.bfloat16
-    checks = [  # (name, bs, H, W, d, nq, dtype, loc range)
+    checks = [  # (name, bs, H, W, d, nq, dtype, loc range[, P])
         ("main fp32 B=1", 6, 14, 14, 96, 900, f32, (-0.1, 1.1)),
         ("main bf16 B=1", 6, 14, 14, 96, 900, bf16, (-0.1, 1.1)),
         ("eval B=2 fp32", 6 * EVAL_BATCH, 14, 14, 96, 900, f32, (-0.1, 1.1)),
@@ -2414,14 +2997,17 @@ def main() -> None:
          (-0.1, 1.1)),
         ("sparse nq=256 bf16", 6 * BATCH, 14, 14, 96, SPARSE_K, bf16,
          (-0.1, 1.1)),
-    ]
+    ] + [(f"{name} P={pp} {'fp32' if dt is f32 else 'bf16'}", bs, H, W, dd,
+          nq, dt, (-0.1, 1.1), pp)
+         for name, bs, H, W, dd, nq, pp in PATH_SHAPES
+         for dt in (f32, bf16)]
     tolerance = {f32: (1e-4, 1e-5), bf16: (1e-2, 1e-2)}
     main_err = None
     with torch.inference_mode():
-        for i, (name, bs, H, W, dd, nq, dt, rng_) in enumerate(checks):
+        for i, (name, bs, H, W, dd, nq, dt, rng_, *pp) in enumerate(checks):
             rtol, atol = tolerance[dt]
-            v, loc, w = deform_inputs(bs, H * W, heads, dd, nq, P, dt, i,
-                                      dev, *rng_)
+            v, loc, w = deform_inputs(bs, H * W, heads, dd, nq, *(pp or [P]),
+                                      dt, i, dev, *rng_)
             got = KERNEL(v, ((H, W),), loc, w)
             torch.cuda.synchronize()
             ref = ms_deform_attn_2d(v.float(), ((H, W),), loc, w)
@@ -2444,9 +3030,9 @@ def main() -> None:
         bf16: dict.fromkeys(("dvalue", "dlocations", "dweights"),
                             (1e-2, 1e-2))}
     bwd_main_errs = None
-    for i, (name, bs, H, W, dd, nq, dt, rng_) in enumerate(checks):
-        v, loc, w = deform_inputs(bs, H * W, heads, dd, nq, P, dt, i, dev,
-                                  *rng_)
+    for i, (name, bs, H, W, dd, nq, dt, rng_, *pp) in enumerate(checks):
+        v, loc, w = deform_inputs(bs, H * W, heads, dd, nq, *(pp or [P]), dt,
+                                  i, dev, *rng_)
         g = grad_out_like(bs, nq, heads, dd, dt, 100 + i, dev)
         got = KERNEL_BWD(v, ((H, W),), loc, w, g)
         torch.cuda.synchronize()
@@ -2643,6 +3229,7 @@ def main() -> None:
                       f"{dv_ms:.4f} ms, dlocations and dweights alone "
                       f"{sums_ms:.4f} ms (graph) [{card}]")
     print("deform_attn_2d_backward timed plans: " + json.dumps(bwd_plans))
+    path_timing = path_shape_timing(card)
 
     # -- phase 6: full forward and eval ------------------------------------
     launches_eval, bwd_launches_eval, samples = full_forward_and_eval(
@@ -2670,6 +3257,14 @@ def main() -> None:
     # -- phase 10b: NCCL of world 1: mesh dumps, train, eval, agent eval ---
     launches_mesh, bwd_launches_mesh = mesh_world_one(
         ver, feats, w2p, shift, dense_vols, samples, agent_env, card)
+
+    # -- phase 11: temporal VER (TSA) and decoder_on_bev -------------------
+    temporal_launches, temporal_numbers = temporal_path(ver, samples, card)
+    print(json.dumps({"temporal": {**temporal_numbers, "card": card}}))
+
+    # -- phase 12: BEVFormer-2D over synthetic nuScenes scenes -------------
+    bev2d_launches, bev2d_numbers = bev2d_path(card)
+    print(json.dumps({"bev2d": {**bev2d_numbers, "card": card}}))
 
     ms, eager_ms, plain_ms, bound_ms, bound_by, floor_ms = timing[
         "B=1 float32"]
@@ -2711,6 +3306,15 @@ def main() -> None:
         "launches_agent_train": agent_train["launches_fwd"],
         "launches_serve": launches_serve,
         "launches_mesh": launches_mesh,
+        "launches_temporal": temporal_launches["history"],
+        "launches_decoder_on_bev": temporal_launches["decoder_on_bev"],
+        "launches_temporal_train": temporal_launches["train"][0],
+        "launches_bev2d": bev2d_launches["b4"],
+        "launches_bev2d_b1": bev2d_launches["b1"],
+        "launches_bev2d_train": bev2d_launches["backward"][0],
+        "path_shapes": {k: {n: v for n, v in r.items()
+                            if not n.startswith("bwd_")}
+                        for k, r in path_timing.items()},
         "card": card,
     }, {
         "name": "deform_attn_2d_backward",
@@ -2750,6 +3354,15 @@ def main() -> None:
         "launches_agent_train": agent_train["launches_bwd"],
         "launches_serve": 0,
         "launches_mesh": bwd_launches_mesh,
+        "launches_temporal": 0,
+        "launches_decoder_on_bev": 0,
+        "launches_temporal_train": temporal_launches["train"][1],
+        "launches_bev2d": 0,
+        "launches_bev2d_b1": 0,
+        "launches_bev2d_train": bev2d_launches["backward"][1],
+        "path_shapes": {k: {n[4:]: v for n, v in r.items()
+                            if n.startswith("bwd_")}
+                        for k, r in path_timing.items()},
         "card": card,
     }]}))
     print(f"chip_smoke total: {time.perf_counter() - T_START:.2f}s")

@@ -1,6 +1,7 @@
 """The port's greedy and sampled rollouts, its evaluation and its
 ``test_vln`` CLI against the JAX package's, on the synthetic environment,
-with the JAX policy's weights carried across.
+with the JAX policy's weights carried across (the CLI's metrics against
+tools/test_vln.py's are in tests/test_torch_agent_rollout_cli.py).
 
 Greedy rollouts branch on an argmax, so a 1e-6 logit error at a near-tie
 could send the two packages down different paths.  Each test therefore
@@ -9,10 +10,7 @@ JAX's own trajectory (rtol 1e-4 / atol 2e-5, the -1e9 entries exactly),
 checks that every decision there has a top-2 margin above 1e-3, and then
 requires equal actions and equal per-episode metrics."""
 
-import json
 import os
-import subprocess
-import sys
 
 import jax
 import numpy as np
@@ -30,7 +28,6 @@ from vln_ver_tpu_torch.agent import rollout as troll
 from vln_ver_tpu_torch.agent.memory import EpisodicMemory
 from vln_ver_tpu_torch.convert import policy_state_dict_from_jax
 from vln_ver_tpu_torch.parallel.mesh import Mesh
-from vln_ver_tpu_torch.utils.checkpoint import save_model
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RTOL, ATOL, MARGIN = 1e-4, 2e-5, 1e-3
@@ -238,62 +235,6 @@ def test_rollout_times_split_the_host_loop(agents):
 
 
 # -- the CLI ---------------------------------------------------------------
-
-def _synthetic_jax(work_dir, objects):
-    """What tools/test_vln.py --synthetic builds, with perturbed weights."""
-    dims = 64
-    kw = dict(embed_dims=dims, num_heads=4, fusion_layers=2, text_layers=2,
-              ffn_dim=2 * dims, vocab_size=128, max_text_len=16,
-              max_nodes=16, bev_z=2, bev_h=4, bev_w=4, num_query_tokens=4)
-    made = jenv.make_synthetic_vln(
-        os.path.join(work_dir, "synvln"), num_scans=2, nodes_per_scan=9,
-        num_episodes=16, bev_num=32, embed_dims=dims, max_text_len=16,
-        with_objects=objects)
-    env = jenv.R2REnv(*made[:3], max_nodes=16,
-                      objects=made[3] if objects else None)
-    cfg = JPolicyConfig(**kw)
-    policy, params = _init_jax(cfg, env, objects, seed=0, scale=0.1)
-    return env, cfg, policy, params, tpol.PolicyConfig(**kw)
-
-
-def _cli(argv, cwd=REPO):
-    out = subprocess.run([sys.executable] + argv, cwd=cwd,
-                         capture_output=True, text=True, timeout=300)
-    assert out.returncode == 0, out.stderr[-3000:]
-    return out.stdout.strip().splitlines()
-
-
-@pytest.mark.parametrize("objects", [False, True], ids=["r2r", "reverie"])
-def test_test_vln_cli_prints_jax_metrics(tmp_path, objects):
-    """tools/test_vln.py on a JAX (orbax) checkpoint and ``python -m
-    vln_ver_tpu_torch.test_vln --device cpu`` on the port's checkpoint
-    converted from it print the same metrics line."""
-    from vln_ver_tpu.utils import checkpoint as jckpt
-    work = str(tmp_path / "work")
-    _, _, _, params, tcfg = _synthetic_jax(work, objects)
-    jdir = str(tmp_path / "jax_ckpt")
-    jckpt.save_state(jdir, 3, params)
-    extra = ["--objects", "synthetic"] if objects else []
-    jax_lines = _cli([os.path.join(REPO, "tools", "test_vln.py"),
-                      "--checkpoint", jdir, "--synthetic", "--work-dir",
-                      work] + extra)
-    want = json.loads(jax_lines[-1])
-    assert want and all(np.isfinite(v) for v in want.values())
-
-    restored = jckpt.restore_state(jdir, jckpt.latest_step(jdir), params)
-    tp = tpol.VLNPolicy(tcfg, grounding=objects)
-    tp.load_state_dict(policy_state_dict_from_jax(restored, tcfg),
-                       strict=True)
-    ckpt = str(tmp_path / "ckpt")
-    save_model(ckpt, 3, tp)
-    args = ["--checkpoint", ckpt, "--synthetic", "--device", "cpu",
-            "--work-dir", work] + extra
-    lines = _cli(["-m", "vln_ver_tpu_torch.test_vln"] + args)
-    assert lines[0] == "restored policy step 3"
-    assert json.loads(lines[-1]) == want
-    from vln_ver_tpu_torch import test_vln
-    assert test_vln.main(args + ["--batch", "8"]) == want
-
 
 def test_test_vln_cli_refuses_mesh_and_missing_cuda(tmp_path):
     from vln_ver_tpu_torch import test_vln

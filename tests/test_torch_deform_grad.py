@@ -268,6 +268,8 @@ def _backward_along_plan(v, loc, w, g, H, W, plan):
     (dict(seed=5, bs=2, nq=21, dim=3), 1),
     (dict(seed=7, bs=2, nq=13, lo=-30.0, hi=30.0), 132),        # far out
     (dict(seed=8, bs=2, nq=13, h=10, w=20), 2),
+    # 4 points, 32 channels, a 15 x 15 map (the BEV-2D attentions)
+    (dict(seed=9, bs=2, nq=21, dim=32, pts=4, h=15, w=15), 132),
 ])
 def test_backward_along_the_plan_matches_autograd(case, sms):
     """The kernel's split of the work (value CTAs by channel slice, sums

@@ -5,11 +5,14 @@ depends on: query chunk, work items, persistent CTAs, V stages and shared
 memory.  ``cta_tiles`` restates the kernel's walk over a plan.  These tests
 hold both to the kernel's contract: every (slot, head, query) is computed
 exactly once, the shared memory fits an sm_90 block, two V stages where
-two fit, and a tile that cannot fit raises.
+two fit, and a tile that cannot fit raises; at the main path's shapes,
+at the edges, and at every launch of the temporal, decoder_on_bev and
+BEV-2D paths, where ``plan_backward`` is checked too.
 """
 
 import numpy as np
 import pytest
+import test_torch_deform_grad as grad_tests
 
 from vln_ver_tpu_torch.ops.deform_cuda import (CHUNK_STEP, CTAS_PER_SM,
                                                HEADER_BYTES, MAX_SMEM_BYTES,
@@ -39,6 +42,22 @@ CASES = [
     ("d=3 bf16 unaligned rows", 4, 8, 57, 196, 3, 2, 2),
     ("d=40 P>32 fp32", 4, 4, 65, 196, 40, 4, 2),
 ]
+# the launches of the temporal, decoder_on_bev and BEV-2D paths (the
+# planners take no P: their 4 points change the taps, not the plan):
+# (name, bs, heads, nq, hw, d)
+NEW_PATHS = [
+    ("decoder_on_bev eval B=2", 2, 8, 100, 225, 96),
+    ("decoder_on_bev train B=1", 1, 8, 100, 225, 96),
+    ("bev2d SCA B=1", 6, 8, 225, 196, 32),
+    ("bev2d SCA B=4", 24, 8, 225, 196, 32),
+    ("bev2d TSA B=1", 2, 8, 225, 225, 32),
+    ("bev2d TSA B=4", 8, 8, 225, 225, 32),
+    ("bev2d decoder B=1", 1, 8, 100, 225, 32),
+    ("bev2d decoder B=4", 4, 8, 100, 225, 32),
+]
+CASES += [(f"{name} {'fp32' if elt == 4 else 'bf16'}", bs, heads, nq, hw, d,
+           elt, 2) for name, bs, heads, nq, hw, d in NEW_PATHS
+          for elt in (4, 2)]
 
 
 @pytest.mark.parametrize("sm_count", [132, 114])
@@ -120,3 +139,14 @@ def test_main_shape_spreads_over_every_sm():
     # each CTA stages at most two V tiles, against 15 per pair for a grid
     # of 64-query tiles
     assert max(len(cta_tiles(plan, 900, c)) for c in range(plan.ctas)) <= 2
+
+
+@pytest.mark.parametrize("case", NEW_PATHS, ids=[c[0] for c in NEW_PATHS])
+def test_backward_plan_at_the_new_paths_shapes(case):
+    """The backward planner at each launch of the temporal,
+    decoder_on_bev and BEV-2D paths: every (slot, head, channel) and
+    every (slot, head, query) covered once, fp32 and bf16, on 132 SMs
+    (hw 225 rows and one 32-channel slice at d = 32)."""
+    _, bs, heads, nq, hw, d = case
+    grad_tests.test_backward_plan_covers_every_query_once(bs, heads, nq, hw,
+                                                          d, 132)

@@ -10,6 +10,8 @@ host that has only PyTorch:
         tests/test_torch_gpu.py
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -155,6 +157,35 @@ def test_backward_kernel_matches_plain_autograd(cuda, dtype, shape):
         rtol, atol = tol[name]
         torch.testing.assert_close(got.float(), ref.float(), rtol=rtol,
                                    atol=atol, msg=name)
+
+
+# the launches of the temporal, decoder_on_bev and BEV-2D paths at full
+# width: P = 4 (a step's upper 16 lanes hold no point), d = 32, a 15 x 15
+# map, nq = 100 and 225
+NEW_PATHS = {
+    "decoder_on_bev": dict(bs=2, h=15, w=15, heads=8, dim=96, nq=100, pts=4),
+    "bev2d_sca": dict(bs=6, h=14, w=14, heads=8, dim=32, nq=225, pts=8),
+    "bev2d_tsa": dict(bs=2, h=15, w=15, heads=8, dim=32, nq=225, pts=4),
+    "bev2d_decoder": dict(bs=1, h=15, w=15, heads=8, dim=32, nq=100, pts=4),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("path", NEW_PATHS)
+def test_kernels_match_plain_at_the_new_paths_shapes(cuda, path, dtype):
+    """Forward and backward at each new launch shape against the plain
+    version and its autograd (fp32: the forward 1e-4 / 1e-5, dlocations
+    1e-3 / 1e-4; bf16: 1e-2)."""
+    shape = NEW_PATHS[path]
+    test_backward_kernel_matches_plain_autograd(cuda, dtype, shape)
+    v, locs, wsm = _case(cuda, dtype, seed=2, **shape)
+    hw = ((shape["h"], shape["w"]),)
+    with torch.inference_mode():
+        got = ms_deform_attn_2d_fused(v, hw, locs, wsm)
+        ref = ms_deform_attn_2d(v.float(), hw, locs, wsm)
+    tol = (1e-4, 1e-5) if dtype == torch.float32 else (1e-2, 1e-2)
+    torch.testing.assert_close(got.float(), ref, rtol=tol[0], atol=tol[1])
 
 
 def test_backward_kernel_is_reproducible(cuda):
@@ -656,3 +687,60 @@ def test_agent_pretrain_update_on_card_matches_cpu(cuda, tmp_path):
                 model(batch, *t)), **kw)
     assert sorted(res["cpu"]["parts"]) == ["mlm", "sap", "total"]
     hold_update(res[str(cuda)], res["cpu"])
+
+
+def test_temporal_models_on_card_match_cpu(cuda):
+    """A TSA config with decoder_on_bev (mlp): the history roll over two
+    frames and the full forward with prev_bev and tsa_shift, card against
+    CPU; the SCA launches once a layer a frame, the decoder once a
+    layer."""
+    cfg = dataclasses.replace(TINY, use_temporal_self_attn=True,
+                              decoder_on_bev=True)
+    feats, w2p, shift = map(torch.from_numpy, _viewpoints(4))
+    queue = [t.reshape(2, 2, *t.shape[1:]) for t in (feats, w2p, shift)]
+    res = {}
+    for dev in ("cpu", cuda):
+        model = build_model(cfg, dev)
+        before = KERNEL.launches
+        prev = model.obtain_history_bev(*(t.to(dev) for t in queue))
+        with torch.inference_mode():
+            outs = model(*(t[:, -1].to(dev) for t in queue), prev_bev=prev,
+                         tsa_shift=torch.full((2, 3), 0.05, device=dev))
+        res[str(dev)] = (prev, outs, KERNEL.launches - before)
+    (p0, o0, n0), (p1, o1, n1) = res["cpu"], res[str(cuda)]
+    assert n0 == 0 and n1 == 3 * cfg.encoder_layers + cfg.decoder_layers
+    torch.testing.assert_close(p1.cpu(), p0, rtol=1e-4, atol=1e-4)
+    for k in ("bev_embed", "all_cls_scores", "all_bbox_preds"):
+        torch.testing.assert_close(o1[k].cpu(), o0[k], rtol=1e-4, atol=1e-4)
+
+
+def test_bev2d_on_card_matches_cpu(cuda):
+    """A small BEVFormer2D with prev_bev and can_bus: card against CPU,
+    3 launches (SCA, TSA-2D, decoder) per layer pair; a two-level config
+    raises before any launch."""
+    from vln_ver_tpu_torch.models.bev2d import BEV2DConfig, build_bev2d
+    cfg = BEV2DConfig(bev_h=6, bev_w=6, embed_dims=64, num_heads=4,
+                      encoder_layers=2, decoder_layers=2, ffn_dim=128,
+                      num_query=12, num_cams=3, feat_h=6, feat_w=6,
+                      in_channels=64, use_shift=True, use_can_bus=True)
+    feats, w2p, shift = map(torch.from_numpy, _viewpoints(2))
+    rng = np.random.default_rng(1)
+    can_bus = torch.from_numpy(rng.standard_normal((2, 18)).astype(
+        np.float32))
+    prev = torch.from_numpy(rng.standard_normal(
+        (2, cfg.bev_num, cfg.embed_dims)).astype(np.float32))
+    res = {}
+    for dev in ("cpu", cuda):
+        model = build_bev2d(cfg, dev, seed=3)
+        before = KERNEL.launches
+        with torch.inference_mode():
+            outs = model(*(t.to(dev) for t in (feats, w2p, shift)),
+                         can_bus=can_bus.to(dev), prev_bev=prev.to(dev))
+        res[str(dev)] = (outs, KERNEL.launches - before)
+    (o0, n0), (o1, n1) = res["cpu"], res[str(cuda)]
+    assert n0 == 0 and n1 == 2 * cfg.encoder_layers + cfg.decoder_layers
+    for k in o0:
+        torch.testing.assert_close(o1[k].cpu(), o0[k], rtol=1e-4, atol=1e-4)
+    two = build_bev2d(dataclasses.replace(cfg, num_levels=2), cuda)
+    with pytest.raises(ValueError, match="one level"):
+        two(feats.to(cuda), w2p.to(cuda), shift.to(cuda))

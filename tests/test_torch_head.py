@@ -289,10 +289,8 @@ def test_init_weights_follows_the_flax_initialisers():
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(decoder_on_bev=True), "decoder_on_bev"),
     (dict(occupancy_size=(0.5, 0.5, 0.5)), "refine_occ"),
     (dict(occ_layout="xyz"), "occ_layout")])
 def test_unported_or_invalid_heads_are_refused(kw, match):
-    err = NotImplementedError if "decoder_on_bev" in kw else ValueError
-    with pytest.raises(err, match=match):
+    with pytest.raises(ValueError, match=match):
         VoxelFormer(dataclasses.replace(TCFG, **kw))

@@ -33,6 +33,10 @@ AGENT = ("agent/__init__.py", "agent/env.py", "agent/data.py",
 # the server and the multi-process modules
 PARALLEL = ("serve.py", "parallel/__init__.py", "parallel/mesh.py",
             "parallel/multihost.py", "agent/parallel.py")
+# the temporal VER model and the BEVFormer-2D family; nuscenes.py is the
+# port's own numpy copy of the JAX reader
+TEMPORAL = ("models/temporal.py", "models/bev2d.py", "convert/bev2d.py",
+            "data/nuscenes.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -70,6 +74,10 @@ def test_agent_modules_are_checked():
 
 def test_parallel_modules_are_checked():
     assert set(PARALLEL) <= _checked()
+
+
+def test_temporal_modules_are_checked():
+    assert set(TEMPORAL) <= _checked()
 
 
 def test_parallel_modules_import_without_jax_or_a_process_group():
@@ -117,10 +125,15 @@ def test_package_imports_without_h5py():
             " vln_ver_tpu_torch.convert_text_encoder,"
             " vln_ver_tpu_torch.convert_crossmodal,"
             " vln_ver_tpu_torch.agent.cli_setup, vln_ver_tpu_torch.serve,"
-            " vln_ver_tpu_torch.parallel, vln_ver_tpu_torch.agent.parallel; "
+            " vln_ver_tpu_torch.parallel, vln_ver_tpu_torch.agent.parallel,"
+            " vln_ver_tpu_torch.models.temporal,"
+            " vln_ver_tpu_torch.models.bev2d, vln_ver_tpu_torch.convert.bev2d,"
+            " vln_ver_tpu_torch.data.nuscenes; "
             "from vln_ver_tpu_torch.data import synthetic_samples; "
             "synthetic_samples(1, 1, num_cams=1, feat_hw=2, feat_dim=4, "
-            "occ_dims=(2, 4, 4)); print('ok')")
+            "occ_dims=(2, 4, 4)); "
+            "from vln_ver_tpu_torch.data import synthetic_nuscenes; "
+            "synthetic_nuscenes(1, 2, 2, 2, 4); print('ok')")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr

@@ -301,3 +301,18 @@ def test_staged_batches_keeps_order_and_raises_in_the_consumer():
     assert next(it) == 0
     with pytest.raises(ValueError, match="placement failed"):
         list(it)
+
+
+def test_global_norm_is_accurate_over_a_large_tensor():
+    """The clip's norm over one 9.4M-element tensor (the size of
+    voxel2bev's first weight) within 1e-6 of a float64 sum.  An fp32
+    ``linalg.vector_norm`` on the CPU, the per-tensor route
+    ``_foreach_norm`` takes there, accumulates the squares without
+    pairwise summation and misses this by orders of magnitude."""
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        9_437_184).astype(np.float32) * 1e-3)
+    small = torch.ones((3, 5))
+    ref = np.sqrt(np.sum(np.square(g.numpy().astype(np.float64))) + 15.0)
+    got = tstate.global_norm([g, small])
+    assert got.dtype == torch.float32
+    assert abs(float(got) - ref) <= 1e-6 * ref

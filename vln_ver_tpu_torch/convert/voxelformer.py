@@ -5,12 +5,15 @@ what the JAX package's ``export_state_dict`` writes and what
 ``tools/export_voxelformer.py`` saves as a ``.pth``.  Two ways in:
 
 * :func:`state_dict_from_jax` maps a JAX (flax) parameter tree of numpy
-  arrays straight onto those names, for every leaf of a non-temporal
-  VoxelFormer: Linear kernels transposed, LayerNorm ``scale`` to
-  ``weight``, the self-attention's per-projection q/k/v kernels packed
-  into ``in_proj_weight`` / ``in_proj_bias``, and the upsampler's
-  correlation kernels flipped and transposed into ``ConvTranspose3d``
-  weights.
+  arrays straight onto those names, for every leaf of a VoxelFormer:
+  Linear kernels transposed, LayerNorm ``scale`` to ``weight``, the
+  self-attention's per-projection q/k/v kernels packed into
+  ``in_proj_weight`` / ``in_proj_bias``, and the upsampler's correlation
+  kernels flipped and transposed into ``ConvTranspose3d`` weights.  A
+  temporal (TSA) config's encoder layers take the reference's temporal
+  numbering: ``attentions.0`` the TSA, ``attentions.1`` the SCA and
+  ``norms.{0,1,2}`` (JAX ``norm0``, ``norm1``, ``norm2``); the JAX
+  package's own ``export_state_dict`` refuses those configs.
 * :func:`load_checkpoint` loads a reference-format ``.pth`` by name,
   strictly.
 
@@ -78,44 +81,67 @@ def _conv_transpose_kernel(k):
     return k[::-1, ::-1, ::-1].transpose(3, 4, 0, 1, 2)
 
 
-_KeyMap = Dict[str, Tuple[Tuple[str, ...], Callable]]
-
-
-def _mapping(cfg: VERConfig) -> _KeyMap:
+class KeyMap(dict):
     """The port's state_dict key -> (the JAX leaf paths it is made of,
-    numpy transform of those leaves), for every parameter of the model
-    ``cfg`` builds."""
-    h, t = "pts_bbox_head", "pts_bbox_head.transformer"
-    m: _KeyMap = {}
+    numpy transform of those leaves), filled by the helpers below for
+    flax's Dense, LayerNorm, branch and attention modules."""
 
-    def leaf(jax_path: str, key: str, fn: Callable = _same):
-        m[key] = ((jax_path,), fn)
+    def leaf(self, jax_path: str, key: str, fn: Callable = _same) -> None:
+        self[key] = ((jax_path,), fn)
 
-    def lin(jax_path: str, key: str):
-        leaf(f"{jax_path}/kernel", f"{key}.weight", _transpose)
-        leaf(f"{jax_path}/bias", f"{key}.bias")
+    def lin(self, jax_path: str, key: str) -> None:
+        self.leaf(f"{jax_path}/kernel", f"{key}.weight", _transpose)
+        self.leaf(f"{jax_path}/bias", f"{key}.bias")
 
-    def ln(jax_path: str, key: str):
-        leaf(f"{jax_path}/scale", f"{key}.weight")
-        leaf(f"{jax_path}/bias", f"{key}.bias")
+    def ln(self, jax_path: str, key: str) -> None:
+        self.leaf(f"{jax_path}/scale", f"{key}.weight")
+        self.leaf(f"{jax_path}/bias", f"{key}.bias")
 
-    def seq(jax_path: str, key: str, num_fcs: int, with_ln: bool):
+    def seq(self, jax_path: str, key: str, num_fcs: int,
+            with_ln: bool) -> None:
+        """A class (``with_ln``) or regression branch: flax ``fc{i}``,
+        ``ln{i}``, ``out`` -> torch Sequential indices."""
         step = 3 if with_ln else 2
         for i in range(num_fcs):
-            lin(f"{jax_path}/fc{i}", f"{key}.{step * i}")
+            self.lin(f"{jax_path}/fc{i}", f"{key}.{step * i}")
             if with_ln:
-                ln(f"{jax_path}/ln{i}", f"{key}.{step * i + 1}")
-        lin(f"{jax_path}/out", f"{key}.{step * num_fcs}")
+                self.ln(f"{jax_path}/ln{i}", f"{key}.{step * i + 1}")
+        self.lin(f"{jax_path}/out", f"{key}.{step * num_fcs}")
 
-    def mha(jax_path: str, key: str):
+    def mha(self, jax_path: str, key: str) -> None:
         qkv = tuple(f"{jax_path}/attn/{n}" for n in ("query", "key", "value"))
-        m[f"{key}.attn.in_proj_weight"] = (
+        self[f"{key}.attn.in_proj_weight"] = (
             tuple(f"{p}/kernel" for p in qkv), _pack_qkv_kernels)
-        m[f"{key}.attn.in_proj_bias"] = (
+        self[f"{key}.attn.in_proj_bias"] = (
             tuple(f"{p}/bias" for p in qkv), _pack_qkv_biases)
-        leaf(f"{jax_path}/attn/out/kernel", f"{key}.attn.out_proj.weight",
-             _mha_out_kernel)
-        leaf(f"{jax_path}/attn/out/bias", f"{key}.attn.out_proj.bias")
+        self.leaf(f"{jax_path}/attn/out/kernel",
+                  f"{key}.attn.out_proj.weight", _mha_out_kernel)
+        self.leaf(f"{jax_path}/attn/out/bias", f"{key}.attn.out_proj.bias")
+
+    def ffn(self, jax_path: str, key: str) -> None:
+        self.lin(f"{jax_path}/fc1", f"{key}.layers.0.0")
+        self.lin(f"{jax_path}/fc2", f"{key}.layers.1")
+
+    def convert(self, leaves: Mapping[str, np.ndarray]
+                ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
+        """(state_dict, the leaf paths not mapped); raises KeyError where
+        a leaf of the mapping is missing."""
+        needed = {p for paths, _ in self.values() for p in paths}
+        missing = sorted(needed - set(leaves))
+        if missing:
+            raise KeyError(f"JAX params lack leaves of the model: "
+                           f"{missing[:10]}")
+        sd = {key: torch.from_numpy(np.ascontiguousarray(
+                  fn(*(leaves[p] for p in paths)), dtype=np.float32))
+              for key, (paths, fn) in self.items()}
+        return sd, sorted(set(leaves) - needed)
+
+
+def _mapping(cfg: VERConfig) -> KeyMap:
+    """The mapping of every parameter of the model ``cfg`` builds."""
+    h, t = "pts_bbox_head", "pts_bbox_head.transformer"
+    m = KeyMap()
+    leaf, lin, ln, seq, mha = m.leaf, m.lin, m.ln, m.seq, m.mha
 
     leaf(f"{h}/voxel_embedding", f"{h}.voxel_embedding.weight")
     for name in ("row_embed", "col_embed", "z_embed"):
@@ -123,23 +149,36 @@ def _mapping(cfg: VERConfig) -> _KeyMap:
              f"{h}.positional_encoding.{name}.weight")
     leaf(f"{h}/transformer/cams_embeds", f"{t}.cams_embeds")
     leaf(f"{h}/transformer/level_embeds", f"{t}.level_embeds")
+    # the reference numbers a temporal layer's attentions and norms in its
+    # operation order (self_attn, norm, cross_attn, norm, ffn, norm)
+    tsa = int(cfg.use_temporal_self_attn)
     for i in range(cfg.encoder_layers):
         jl = f"{h}/transformer/encoder/layer_{i}"
         el = f"{t}.encoder.layers.{i}"
+        if tsa:
+            for name in ("value_proj", "sampling_offsets",
+                         "attention_weights", "output_proj"):
+                lin(f"{jl}/temporal_self_attn/{name}",
+                    f"{el}.attentions.0.{name}")
+            ln(f"{jl}/norm0", f"{el}.norms.0")
+        sca = f"{el}.attentions.{tsa}"
         for name in ("value_proj", "sampling_offsets", "attention_weights"):
             lin(f"{jl}/cross_attn/deformable_attention/{name}",
-                f"{el}.attentions.0.deformable_attention.{name}")
-        lin(f"{jl}/cross_attn/output_proj", f"{el}.attentions.0.output_proj")
-        ln(f"{jl}/norm1", f"{el}.norms.0")
-        lin(f"{jl}/ffn/fc1", f"{el}.ffns.0.layers.0.0")
-        lin(f"{jl}/ffn/fc2", f"{el}.ffns.0.layers.1")
-        ln(f"{jl}/norm2", f"{el}.norms.1")
+                f"{sca}.deformable_attention.{name}")
+        lin(f"{jl}/cross_attn/output_proj", f"{sca}.output_proj")
+        ln(f"{jl}/norm1", f"{el}.norms.{tsa}")
+        m.ffn(f"{jl}/ffn", f"{el}.ffns.0")
+        ln(f"{jl}/norm2", f"{el}.norms.{tsa + 1}")
 
     if not cfg.only_occ:
         leaf(f"{h}/query_embedding", f"{h}.query_embedding.weight")
         leaf(f"{h}/query_layout_embedding",
              f"{h}.query_layout_embedding.weight")
         lin(f"{h}/transformer/reference_points", f"{t}.reference_points")
+        if cfg.decoder_on_bev and cfg.voxel_2_bev_type == "mlp":
+            for j, kind in ((0, lin), (1, ln), (3, lin), (4, ln)):
+                kind(f"{h}/transformer/voxel2bev/layers_{j}",
+                     f"{t}.voxel2bev.{j}")
         for i in range(cfg.decoder_layers):
             jl = f"{h}/transformer/decoder/layer_{i}"
             dl = f"{t}.decoder.layers.{i}"
@@ -149,8 +188,7 @@ def _mapping(cfg: VERConfig) -> _KeyMap:
                          "attention_weights", "output_proj"):
                 lin(f"{jl}/cross_attn/{name}", f"{dl}.attentions.1.{name}")
             ln(f"{jl}/norm2", f"{dl}.norms.1")
-            lin(f"{jl}/ffn/fc1", f"{dl}.ffns.0.layers.0.0")
-            lin(f"{jl}/ffn/fc2", f"{dl}.ffns.0.layers.1")
+            m.ffn(f"{jl}/ffn", f"{dl}.ffns.0")
             ln(f"{jl}/norm3", f"{dl}.norms.2")
             # the reference keeps the regression branches on the head
             seq(f"{h}/transformer/reg_branch_{i}", f"{h}.reg_branches.{i}",
@@ -177,17 +215,12 @@ def state_dict_from_jax(params: Mapping, cfg: VERConfig
                         ) -> Tuple[Dict[str, torch.Tensor], List[str]]:
     """JAX ``VoxelFormer`` parameter tree (numpy leaves; an outer
     ``{"params": ...}`` is unwrapped) -> (the port's state_dict, the JAX
-    leaf paths it did not map, empty for a non-temporal model).
+    leaf paths it did not map, empty for a model of the tree's config).
 
-    The positional encoding is inert on the active path, so flax never
-    creates it; where the tree lacks it, it gets zeros of the reference
-    shapes, as the JAX package's ``export_state_dict`` writes.  Raises
-    KeyError when any other parameter of the model is missing and
-    NotImplementedError on a temporal config."""
-    if cfg.use_temporal_self_attn:
-        raise NotImplementedError(
-            "temporal (TSA) configs are not ported yet (ROADMAP Queue 1, "
-            "item 11)")
+    The positional encoding is inert without TSA, so flax creates it only
+    for a temporal config; where the tree lacks it, it gets zeros of the
+    reference shapes, as the JAX package's ``export_state_dict`` writes.
+    Raises KeyError when any other parameter of the model is missing."""
     if "params" in params and len(params) == 1:
         params = params["params"]
     leaves = _flatten(params)
@@ -196,15 +229,7 @@ def state_dict_from_jax(params: Mapping, cfg: VERConfig
                        ("z_embed", cfg.bev_z)):
         leaves.setdefault(pos + name, np.zeros((rows, cfg.embed_dims),
                                                np.float32))
-    mapping = _mapping(cfg)
-    needed = {p for paths, _ in mapping.values() for p in paths}
-    missing = sorted(needed - set(leaves))
-    if missing:
-        raise KeyError(f"JAX params lack leaves of the model: {missing[:10]}")
-    sd = {key: torch.from_numpy(np.ascontiguousarray(
-              fn(*(leaves[p] for p in paths)), dtype=np.float32))
-          for key, (paths, fn) in mapping.items()}
-    return sd, sorted(set(leaves) - needed)
+    return _mapping(cfg).convert(leaves)
 
 
 def load_checkpoint(model: nn.Module, path: str) -> List[str]:

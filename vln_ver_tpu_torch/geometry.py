@@ -35,6 +35,39 @@ def voxel_reference_points(bev_z: int, bev_h: int, bev_w: int,
     return torch.stack([x, y, z], dim=-1).reshape(-1, 3)
 
 
+def pillar_reference_points(bev_h: int, bev_w: int,
+                            num_points_in_pillar: int = 4,
+                            z_extent: float | None = None,
+                            device=None) -> torch.Tensor:
+    """Normalised pillar sampling points of a 2D BEV grid.
+
+    Each BEV cell is sampled at ``num_points_in_pillar`` heights,
+    ``linspace(0.5, Z - 0.5, P) / Z`` with ``Z`` the metric pillar height
+    ``z_extent`` (the pc-range z extent: a 0.5 m margin at both ends);
+    omitted, ``Z == P``.  Returns ``(bev_h*bev_w, P, 3)`` fp32 (x, y, z)
+    in [0, 1]; flat order is h-major then w, anchors bottom-up.
+    """
+    p = num_points_in_pillar
+    z_top = float(z_extent) if z_extent is not None else float(p)
+    zs = torch.linspace(0.5, z_top - 0.5, p, dtype=torch.float32,
+                        device=device) / z_top
+    xy = bev_reference_points(bev_h, bev_w, device=device)   # (hw, 2)
+    return torch.cat([xy[:, None, :].expand(-1, p, 2),
+                      zs[None, :, None].expand(xy.shape[0], p, 1)], dim=-1)
+
+
+def bev_reference_points(bev_h: int, bev_w: int,
+                         device=None) -> torch.Tensor:
+    """Normalised 2D BEV cell centres, ``(bev_h*bev_w, 2)`` fp32 (x, y) in
+    [0, 1], h-major flat order: the reference points of the 2D temporal
+    self-attention."""
+    def centres(n):
+        return (torch.arange(n, dtype=torch.float32, device=device)
+                + 0.5) / n
+    y, x = torch.meshgrid(centres(bev_h), centres(bev_w), indexing="ij")
+    return torch.stack([x, y], dim=-1).reshape(-1, 2)
+
+
 def project_reference_points(ref_xyz: torch.Tensor,
                              world2pixel: torch.Tensor,
                              origin_shift: torch.Tensor,

@@ -10,8 +10,8 @@
   camera's first K visible queries only (the sparse lift).
 * :class:`VoxelDeformableAttention3D` is the decoder's cross-attention,
   the reference VoxelCustomMSDeformableAttention (voxel_decoder.py:
-  135-358): 3D offsets, trilinear sampling over the (z, h, w) voxel grid,
-  output projection and residual.
+  135-358): 3D offsets, trilinear sampling over the (z, h, w) voxel grid
+  (bilinear over a depth-1 grid), output projection and residual.
 * :class:`MultiheadAttention` is mmcv's wrapper around
   ``nn.MultiheadAttention`` (the decoder's self-attention).
 
@@ -252,10 +252,12 @@ class SpatialCrossAttention(nn.Module):
 
 class VoxelDeformableAttention3D(nn.Module):
     """3D deformable cross-attention of object queries over the voxel grid
-    (reference VoxelCustomMSDeformableAttention).  The sampling is the
-    plain gather form on every device; a depth-1 grid samples bilinearly
-    (``voxel_deform_attn_3d``'s 2D route, the reference's for
-    ``decoder_on_bev``).  Output projection, dropout, residual."""
+    (reference VoxelCustomMSDeformableAttention).  The 3D sampling is the
+    plain gather form on every device.  A grid of depth 1 (the reference's
+    ``decoder_on_bev`` route) is sampled bilinearly over (x, y) by
+    ``ms_deform_attn_2d_fused``: the plain version on the CPU, the
+    hand-written kernel on the card.  Output projection, dropout,
+    residual."""
 
     def __init__(self, embed_dims: int = 768, num_heads: int = 8,
                  num_levels: int = 1, num_points: int = 4,
@@ -313,8 +315,17 @@ class VoxelDeformableAttention3D(nn.Module):
         locations = (reference_points[:, :, None, :, None, :].float()
                      + offsets / normalizer[None, None, None, :, None, :])
 
-        out = voxel_deform_attn_3d(value.float(), spatial_shapes, locations,
-                                   attn)
+        if all(d == 1 for (d, _, _) in spatial_shapes):
+            # decoder_on_bev: a depth-1 grid is sampled in 2D over (x, y)
+            # (vln_ver_tpu/models/attention.py:345-362), the function of
+            # the single-level kernel; z stays an inert offset component
+            shapes_2d = tuple((h, w) for (_, h, w) in spatial_shapes)
+            out = ms_deform_attn_2d_fused(
+                value.contiguous(), shapes_2d,
+                locations[..., :2].contiguous(), attn.contiguous())
+        else:
+            out = voxel_deform_attn_3d(value.float(), spatial_shapes,
+                                       locations, attn)
         return self.dropout(self.output_proj(out.to(self.dtype))) + identity
 
 

@@ -18,6 +18,7 @@ from .attention import (CamDeformableAttention, SpatialCrossAttention,
 from .config import VERConfig
 from .head import ClsBranch, Embedding, VoxelFormerOccupancyHead
 from .layers import ConvTranspose3d, Dense
+from .temporal import VoxelTemporalSelfAttention
 from .transformer import VoxelTransformer
 
 
@@ -47,7 +48,8 @@ class VoxelFormer(nn.Module):
                 m.reset_parameters(generator)
         for m in self.modules():
             if isinstance(m, (CamDeformableAttention,
-                              VoxelDeformableAttention3D)):
+                              VoxelDeformableAttention3D,
+                              VoxelTemporalSelfAttention)):
                 m.init_sampling()
             elif isinstance(m, ClsBranch):
                 m.init_prior()
@@ -65,12 +67,46 @@ class VoxelFormer(nn.Module):
         return self
 
     def forward(self, features: torch.Tensor, world2pixel: torch.Tensor,
-                origin_shift: torch.Tensor, only_bev: bool = False) -> dict:
+                origin_shift: torch.Tensor, prev_bev=None, tsa_shift=None,
+                only_bev: bool = False) -> dict:
         # an fp32 model is true fp32 for every caller, not only the CLIs
         # that set the flags: the upsampler is a cuDNN convolution
         with fp32_precision(self.cfg.dtype):
             return self.pts_bbox_head(features, world2pixel, origin_shift,
+                                      prev_bev=prev_bev, tsa_shift=tsa_shift,
                                       only_bev=only_bev)
+
+    @torch.no_grad()
+    def obtain_history_bev(self, features_queue: torch.Tensor,
+                           world2pixel_queue: torch.Tensor,
+                           origin_shift_queue: torch.Tensor) -> torch.Tensor:
+        """Roll the encoder over a frame queue (reference
+        obtain_history_bev, voxelformer.py:209-228): each frame's voxel
+        grid is computed with the previous frame's in the TSA queue,
+        without gradients (JAX's ``stop_gradient``), in eval mode.
+
+        Queues are (B, T, ...); returns the last frame's (B, bev_num, C).
+        The TSA's slot-0 shift of frame t is the ego displacement in
+        normalised grid units, ``(origin_t - origin_{t-1}) / extent``: a
+        world point at normalised r in frame t sits at r + shift in the
+        previous frame's grid."""
+        pc = torch.tensor(self.cfg.pc_range, dtype=torch.float32,
+                          device=origin_shift_queue.device)
+        extent = pc[3:] - pc[:3]
+        was_training = self.training
+        self.eval()
+        try:
+            prev = None
+            for t in range(features_queue.shape[1]):
+                shift = (None if prev is None else
+                         (origin_shift_queue[:, t].float()
+                          - origin_shift_queue[:, t - 1].float()) / extent)
+                prev = self(features_queue[:, t], world2pixel_queue[:, t],
+                            origin_shift_queue[:, t], prev_bev=prev,
+                            tsa_shift=shift, only_bev=True)["bev_embed"]
+        finally:
+            self.train(was_training)
+        return prev
 
 
 def build_model(cfg: VERConfig, device, seed: int = 0) -> VoxelFormer:

@@ -67,16 +67,25 @@ class _UniformTable(Embedding):
 
 
 class VoxelLearnedPositionalEncoding(nn.Module):
-    """Learned row, column and z embeddings (voxel_positional_embedding.py:
-    10-79).  Inert on the active path: only temporal self-attention reads
-    it, which the port does not have yet (ROADMAP Queue 1, item 11); it is
-    kept so that reference checkpoints load strictly."""
+    """Learned row, column and z embeddings of the full width, summed
+    (voxel_positional_embedding.py:10-79): the TSA's ``query_pos``.  Inert
+    on the non-temporal path, where it is kept so that reference
+    checkpoints load strictly."""
 
     def __init__(self, cfg: VERConfig):
         super().__init__()
         self.row_embed = _UniformTable(cfg.bev_h, cfg.embed_dims)
         self.col_embed = _UniformTable(cfg.bev_w, cfg.embed_dims)
         self.z_embed = _UniformTable(cfg.bev_z, cfg.embed_dims)
+        self.dtype = cfg.dtype
+
+    def forward(self, batch_size: int) -> torch.Tensor:
+        """(batch, bev_z*bev_h*bev_w, C), flat order z, h, w."""
+        pos = (self.z_embed.weight[:, None, None, :]
+               + self.row_embed.weight[None, :, None, :]
+               + self.col_embed.weight[None, None, :, :])
+        pos = pos.reshape(1, -1, pos.shape[-1]).to(self.dtype)
+        return pos.expand(batch_size, -1, -1)
 
 
 class ClsBranch(nn.Sequential):
@@ -241,22 +250,31 @@ class VoxelFormerOccupancyHead(nn.Module):
 
     # ------------------------------------------------------------------
     def forward(self, features: torch.Tensor, world2pixel: torch.Tensor,
-                origin_shift: torch.Tensor, only_bev: bool = False) -> dict:
+                origin_shift: torch.Tensor, prev_bev=None, tsa_shift=None,
+                only_bev: bool = False) -> dict:
         """features (B, num_cams, feat_h, feat_w, C); world2pixel
-        (B, num_cams, 4, 4); origin_shift (B, 3).  Returns the JAX
+        (B, num_cams, 4, 4); origin_shift (B, 3); prev_bev the previous
+        frame's voxel grid (B, bev_num, C) and tsa_shift (B, 3) its
+        normalised ego motion, both for the TSA queue.  Returns the JAX
         package's dict (the reference's ``outs``, head:615-625); with
         ``only_bev``, ``{"bev_embed": (B, bev_num, C), "sca_overflow"}``."""
         cfg = self.cfg
         b = features.shape[0]
         voxel_queries = self.voxel_embedding.weight[None].expand(
             b, -1, -1).to(cfg.dtype)
+        # the TSA's query_pos; inert without it (encoder.py)
+        bev_pos = (self.positional_encoding(b)
+                   if cfg.use_temporal_self_attn else None)
+        temporal = dict(prev_bev=prev_bev, bev_pos=bev_pos,
+                        tsa_shift=tsa_shift)
         outs = {"bev_embed": None, "all_cls_scores": None,
                 "all_bbox_preds": None, "all_layout_preds": None,
                 "occupancy_preds": None, "flow_preds": None}
 
         if only_bev or cfg.only_occ:
             bev_embed, overflow = self.transformer.get_voxel_features(
-                features, voxel_queries, world2pixel, origin_shift)
+                features, voxel_queries, world2pixel, origin_shift,
+                **temporal)
             if only_bev:
                 return {"bev_embed": bev_embed, "sca_overflow": overflow}
             outs.update(bev_embed=bev_embed, sca_overflow=overflow,
@@ -265,7 +283,7 @@ class VoxelFormerOccupancyHead(nn.Module):
 
         bev_embed, hs, raw_preds, refs_before, overflow = self.transformer(
             features, voxel_queries, self.query_embedding.weight,
-            world2pixel, origin_shift, self.reg_branches)
+            world2pixel, origin_shift, self.reg_branches, **temporal)
         outs.update(bev_embed=bev_embed, sca_overflow=overflow)
         outs["all_cls_scores"] = torch.stack([
             branch(hs[lid]) for lid, branch in enumerate(self.cls_branches)])

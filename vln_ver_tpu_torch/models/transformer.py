@@ -6,6 +6,10 @@ flattened per-view features, projects the voxel queries into every camera
 and runs the voxel encoder; ``forward`` also runs the DETR decoder over the
 resulting voxel grid, refining its reference points with the head's
 regression branches (reference names: ``pts_bbox_head.reg_branches``).
+With ``decoder_on_bev`` the decoder attends a (1, H, W) BEV grid made from
+the voxel grid by ``voxel2bev`` (``'mlp'``: Linear, LN, ReLU, Linear, LN,
+ReLU over the z-concatenated features, voxel_transformer.py:86-96) or by
+the max over z (``'pool'``).
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from .. import geometry
 from .config import VERConfig
 from .decoder import VoxelDetectionDecoder
 from .encoder import VoxelEncoder
-from .layers import Dense
+from .layers import Dense, LayerNorm
 
 
 class RegBranch(nn.Sequential):
@@ -48,10 +52,15 @@ class VoxelTransformer(nn.Module):
         # a parallel.mesh.ViewShard when the cameras are split over ranks
         self.views = None
         if not cfg.only_occ:
-            if cfg.decoder_on_bev:
-                raise NotImplementedError(
-                    "decoder_on_bev (voxel-to-BEV mlp/pool before the "
-                    "decoder) is not ported yet (ROADMAP Queue 1, item 11)")
+            if cfg.voxel_2_bev_type not in ("mlp", "pool"):
+                raise ValueError(f"unknown voxel_2_bev_type "
+                                 f"{cfg.voxel_2_bev_type!r}")
+            if cfg.decoder_on_bev and cfg.voxel_2_bev_type == "mlp":
+                e, mid = cfg.embed_dims, cfg.embed_dims * cfg.bev_z
+                self.voxel2bev = nn.Sequential(
+                    Dense(mid, mid, cfg.dtype), LayerNorm(mid, cfg.dtype),
+                    nn.ReLU(), Dense(mid, e, cfg.dtype),
+                    LayerNorm(e, cfg.dtype), nn.ReLU())
             self.decoder = VoxelDetectionDecoder(cfg)
             self.reference_points = Dense(cfg.embed_dims, 3)
 
@@ -63,7 +72,8 @@ class VoxelTransformer(nn.Module):
     def get_voxel_features(self, features: torch.Tensor,
                            bev_queries: torch.Tensor,
                            world2pixel: torch.Tensor,
-                           origin_shift: torch.Tensor):
+                           origin_shift: torch.Tensor, prev_bev=None,
+                           bev_pos=None, tsa_shift=None):
         """Lift multi-view features into the voxel grid.
 
         Args:
@@ -71,6 +81,11 @@ class VoxelTransformer(nn.Module):
           bev_queries: (B, bev_num, C) voxel queries.
           world2pixel: (B, num_cams, 4, 4).
           origin_shift: (B, 3).
+          prev_bev, bev_pos, tsa_shift: the TSA's previous voxel grid
+            (B, bev_num, C), query positions and slot-0 shift (B, 3) in
+            normalised grid units, under ``use_temporal_self_attn``.  No
+            shift is zero shift, the reference voxel transformer's
+            hard-coded ``[[0., 0., 0.]]`` (voxel_transformer.py:140).
         Returns:
           ((B, bev_num, C) voxel embedding, sca_overflow).  With a query
           capacity K (``sca_query_capacity``, below bev_num)
@@ -111,12 +126,15 @@ class VoxelTransformer(nn.Module):
                                 group=self.views.group)
             overflow = (visible - cap).clamp_min(0)
 
-        embed = self.encoder(bev_queries, value, cam_xy, mask, ((fh, fw),))
+        embed = self.encoder(bev_queries, value, cam_xy, mask, ((fh, fw),),
+                             prev_bev=prev_bev, bev_pos=bev_pos,
+                             shift=tsa_shift)
         return embed, overflow
 
     def forward(self, features: torch.Tensor, bev_queries: torch.Tensor,
                 object_query_embed: torch.Tensor, world2pixel: torch.Tensor,
-                origin_shift: torch.Tensor, reg_branches):
+                origin_shift: torch.Tensor, reg_branches, prev_bev=None,
+                bev_pos=None, tsa_shift=None):
         """Full encoder + decoder pass.
 
         Returns (voxel_embed (B, bev_num, C), inter_states (L, B, nq, C),
@@ -124,13 +142,25 @@ class VoxelTransformer(nn.Module):
         sca_overflow)."""
         cfg = self.cfg
         voxel_embed, overflow = self.get_voxel_features(
-            features, bev_queries, world2pixel, origin_shift)
+            features, bev_queries, world2pixel, origin_shift,
+            prev_bev=prev_bev, bev_pos=bev_pos, tsa_shift=tsa_shift)
         b = features.shape[0]
         query_pos, query = object_query_embed.chunk(2, dim=-1)
         query_pos = query_pos[None].expand(b, -1, -1).to(cfg.dtype)
         query = query[None].expand(b, -1, -1).to(cfg.dtype)
         init_ref = self.reference_points(query_pos.float()).sigmoid()
+        dec_value, grid = voxel_embed, (cfg.bev_z, cfg.bev_h, cfg.bev_w)
+        if cfg.decoder_on_bev:
+            # collapse z: the decoder attends a (1, H, W) grid
+            # (voxel_transformer.py:263-285)
+            vol = voxel_embed.reshape(b, cfg.bev_z, cfg.bev_h * cfg.bev_w,
+                                      cfg.embed_dims)
+            if cfg.voxel_2_bev_type == "mlp":
+                dec_value = self.voxel2bev(vol.permute(0, 2, 1, 3).reshape(
+                    b, cfg.bev_h * cfg.bev_w, cfg.bev_z * cfg.embed_dims))
+            else:
+                dec_value = vol.amax(dim=1)
+            grid = (1, cfg.bev_h, cfg.bev_w)
         inter_states, refs_before, raw_preds = self.decoder(
-            query, voxel_embed, query_pos, init_ref, reg_branches,
-            ((cfg.bev_z, cfg.bev_h, cfg.bev_w),))
+            query, dec_value, query_pos, init_ref, reg_branches, (grid,))
         return voxel_embed, inter_states, raw_preds, refs_before, overflow

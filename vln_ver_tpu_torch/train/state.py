@@ -88,10 +88,14 @@ def make_optimizer(model: nn.Module, tc: TrainConfig
 
 
 def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
-    """optax.global_norm: the L2 norm of every element of ``grads`` (the
-    parameters' dtype, fp32 in the model), the per-tensor norms in one
-    fused call."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+    """optax.global_norm: the L2 norm of every element of ``grads``, the
+    per-tensor norms in one fused call, each summed in float64, the
+    result in the gradients' dtype.  An fp32 sum of squares over one large
+    tensor is not accurate to fp32 on the CPU: 3.3e-4 relative over the
+    9.4M elements of ``voxel2bev``'s first weight, where the card's and
+    XLA's tree reductions are within 1e-6."""
+    norms = torch._foreach_norm(grads, 2, dtype=torch.float64)
+    return torch.linalg.vector_norm(torch.stack(norms)).to(grads[0].dtype)
 
 
 @dataclasses.dataclass
