@@ -254,12 +254,6 @@ def test_train_cli_refusals(tmp_path, monkeypatch):
         train_main([CONFIG, "--device", "cpu", "--mesh", "2,1"])
     with pytest.raises(NotImplementedError, match="item 13b"):
         train_main([CONFIG, "--device", "cpu", "--tp-model", "2"])
-    tb = tmp_path / "tb.py"
-    tb.write_text(f"_base_ = [{CONFIG!r}]\n"
-                  "log_config = dict(interval=1, hooks=[dict(type="
-                  "'TensorboardLoggerHook')])\n")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        train_main([str(tb), "--device", "cpu", "--synthetic"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         train_main([CONFIG, "--synthetic"])

@@ -58,6 +58,18 @@ NEW_PATHS = [
 CASES += [(f"{name} {'fp32' if elt == 4 else 'bf16'}", bs, heads, nq, hw, d,
            elt, 2) for name, bs, heads, nq, hw, d in NEW_PATHS
           for elt in (4, 2)]
+# the 36-view headline's launches (python -m vln_ver_tpu_torch.bench): 288
+# slots at batch 8, 72 at bench_train's and check_determinism's batch 2,
+# over the dense lift's 900 queries and the sparse lift's 192
+HEADLINE = [
+    ("36-view B=8 dense", 288, 8, 900, 196, 96),
+    ("36-view B=8 sparse", 288, 8, 192, 196, 96),
+    ("36-view B=2 dense", 72, 8, 900, 196, 96),
+    ("36-view B=2 sparse", 72, 8, 192, 196, 96),
+]
+CASES += [(f"{name} {'fp32' if elt == 4 else 'bf16'}", bs, heads, nq, hw, d,
+           elt, 2) for name, bs, heads, nq, hw, d in HEADLINE
+          for elt in (4, 2)]
 
 
 @pytest.mark.parametrize("sm_count", [132, 114])
@@ -147,6 +159,15 @@ def test_backward_plan_at_the_new_paths_shapes(case):
     decoder_on_bev and BEV-2D paths: every (slot, head, channel) and
     every (slot, head, query) covered once, fp32 and bf16, on 132 SMs
     (hw 225 rows and one 32-channel slice at d = 32)."""
+    _, bs, heads, nq, hw, d = case
+    grad_tests.test_backward_plan_covers_every_query_once(bs, heads, nq, hw,
+                                                          d, 132)
+
+
+@pytest.mark.parametrize("case", HEADLINE[2:], ids=[c[0] for c in HEADLINE[2:]])
+def test_backward_plan_at_the_36_view_shapes(case):
+    """The backward planner at bench_train's 72 slots (the backward runs
+    in training only), dense and sparse, fp32 and bf16, on 132 SMs."""
     _, bs, heads, nq, hw, d = case
     grad_tests.test_backward_plan_covers_every_query_once(bs, heads, nq, hw,
                                                           d, 132)

@@ -188,6 +188,37 @@ def test_kernels_match_plain_at_the_new_paths_shapes(cuda, path, dtype):
     torch.testing.assert_close(got.float(), ref, rtol=tol[0], atol=tol[1])
 
 
+# the 36-view headline's launches: 288 slots at batch 8 (inference: the
+# forward alone) and 72 at bench_train's batch 2 (both kernels), over the
+# dense lift's 900 queries and the sparse lift's 192
+HEADLINE = {"B=8 dense": dict(bs=288, nq=900), "B=8 sparse": dict(bs=288,
+                                                                  nq=192),
+            "B=2 dense": dict(bs=72, nq=900), "B=2 sparse": dict(bs=72,
+                                                                 nq=192)}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+@pytest.mark.parametrize("name", HEADLINE)
+def test_kernels_match_plain_at_the_36_view_shapes(cuda, name, dtype):
+    """The forward against the plain version (computed over blocks of 72
+    slots: each slot's output is its own) and, at 72 slots, the backward
+    against its autograd; the tolerances of the tests above."""
+    shape = dict(h=14, w=14, heads=8, dim=96, **HEADLINE[name])
+    v, locs, wsm = _case(cuda, dtype, seed=3, **shape)
+    hw = ((14, 14),)
+    with torch.inference_mode():
+        got = ms_deform_attn_2d_fused(v, hw, locs, wsm)
+        ref = torch.cat([ms_deform_attn_2d(v[i:i + 72].float(), hw,
+                                           locs[i:i + 72], wsm[i:i + 72])
+                         for i in range(0, shape["bs"], 72)])
+    tol = (1e-4, 1e-5) if dtype == torch.float32 else (1e-2, 1e-2)
+    torch.testing.assert_close(got.float(), ref, rtol=tol[0], atol=tol[1])
+    del got, ref
+    if shape["bs"] == 72:
+        test_backward_kernel_matches_plain_autograd(cuda, dtype, shape)
+
+
 def test_backward_kernel_is_reproducible(cuda):
     """Two launches on the same inputs give bitwise-equal dvalue,
     dlocations and dweights: every sum runs in a fixed order (one warp per

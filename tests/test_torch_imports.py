@@ -37,6 +37,13 @@ PARALLEL = ("serve.py", "parallel/__init__.py", "parallel/mesh.py",
 # port's own numpy copy of the JAX reader
 TEMPORAL = ("models/temporal.py", "models/bev2d.py", "convert/bev2d.py",
             "data/nuscenes.py")
+# the headline measurement, the remaining utils and the tools' entry
+# points
+TOOLS = ("bench.py", "utils/bench.py", "benchmark.py", "bench_train.py",
+         "check_determinism.py", "utils/tensorboard.py",
+         "utils/profiling.py", "augment.py", "get_params.py",
+         "print_config.py", "browse_dataset.py", "publish_model.py",
+         "fire_drill.py")
 
 
 def _forbidden(name: str) -> bool:
@@ -78,6 +85,10 @@ def test_parallel_modules_are_checked():
 
 def test_temporal_modules_are_checked():
     assert set(TEMPORAL) <= _checked()
+
+
+def test_tool_modules_are_checked():
+    assert set(TOOLS) <= _checked()
 
 
 def test_parallel_modules_import_without_jax_or_a_process_group():
@@ -128,7 +139,15 @@ def test_package_imports_without_h5py():
             " vln_ver_tpu_torch.parallel, vln_ver_tpu_torch.agent.parallel,"
             " vln_ver_tpu_torch.models.temporal,"
             " vln_ver_tpu_torch.models.bev2d, vln_ver_tpu_torch.convert.bev2d,"
-            " vln_ver_tpu_torch.data.nuscenes; "
+            " vln_ver_tpu_torch.data.nuscenes, vln_ver_tpu_torch.bench,"
+            " vln_ver_tpu_torch.utils.bench, vln_ver_tpu_torch.benchmark,"
+            " vln_ver_tpu_torch.bench_train,"
+            " vln_ver_tpu_torch.check_determinism,"
+            " vln_ver_tpu_torch.utils.tensorboard,"
+            " vln_ver_tpu_torch.utils.profiling, vln_ver_tpu_torch.augment,"
+            " vln_ver_tpu_torch.get_params, vln_ver_tpu_torch.print_config,"
+            " vln_ver_tpu_torch.browse_dataset,"
+            " vln_ver_tpu_torch.publish_model, vln_ver_tpu_torch.fire_drill; "
             "from vln_ver_tpu_torch.data import synthetic_samples; "
             "synthetic_samples(1, 1, num_cams=1, feat_hw=2, feat_dim=4, "
             "occ_dims=(2, 4, 4)); "

@@ -13,6 +13,10 @@ Usage:
 
 SIGTERM finishes the step in flight, writes a synchronous checkpoint and
 exits 0; ``--resume`` then continues at the same step and data position.
+A ``TensorboardLoggerHook`` in the config's ``log_config`` also writes the
+logged scalars (``train/<key>``, and ``val/<key>`` of the eval ticks) as
+Tensorboard events under ``<work-dir>/tf_logs``, as ``tools/train.py``
+does.
 
 Data-parallel over several cards, one process each (torchrun's
 environment), optionally with each viewpoint's cameras split over V:
@@ -118,12 +122,6 @@ def main(argv=None) -> dict:
     writer = multihost.process_index() == 0
     cfg = apply_cfg_options(load_config(args.config), args.cfg_options)
     log_cfg = cfg.get("log_config", {}) or {}
-    if any("Tensorboard" in str(h.get("type", ""))
-           for h in log_cfg.get("hooks", []) or [] if isinstance(h, dict)):
-        raise NotImplementedError(
-            "a TensorboardLoggerHook in log_config: the event writer "
-            "(utils/tensorboard.py) is not ported yet (ROADMAP Queue 1, "
-            "item 15)")
     ver = build_ver_config(cfg, **({"remat_encoder": True}
                                    if args.remat else {}))
     os.makedirs(args.work_dir, exist_ok=True)
@@ -177,6 +175,16 @@ def main(argv=None) -> dict:
             print(f"resumed from step {start_step}")
     step_fn = make_train_step(ver, tc, mesh)
     log_interval = args.log_interval or int(log_cfg.get("interval", 50))
+    # the reference's log_config hooks (vocc.py:286-291): the jsonl log
+    # and stdout stand for its TextLoggerHook; a TensorboardLoggerHook
+    # turns on the event writer, on rank 0
+    tb_writer = None
+    if writer and any("Tensorboard" in str(h.get("type", ""))
+                      for h in log_cfg.get("hooks", []) or []
+                      if isinstance(h, dict)):
+        from ..utils.tensorboard import SummaryWriter
+        tb_writer = SummaryWriter(os.path.join(args.work_dir, "tf_logs"))
+        print(f"tensorboard events -> {tb_writer.path}")
 
     # checkpoint metadata (the reference's tools/train.py embeds the config
     # text and CLASSES in its checkpoints)
@@ -260,6 +268,11 @@ def main(argv=None) -> dict:
                             / max(step - start_step, 1))
                         log.write(json.dumps(metrics) + "\n")
                         log.flush()
+                        if tb_writer is not None:
+                            tb_writer.add_scalars(
+                                {f"train/{k}": v for k, v in metrics.items()},
+                                step)
+                            tb_writer.flush()
                         print(f"step {step}: loss={metrics['loss']:.4f} "
                               f"cls={metrics.get('loss_cls', 0):.4f} "
                               f"bbox={metrics.get('loss_bbox', 0):.4f} "
@@ -295,6 +308,11 @@ def main(argv=None) -> dict:
                         print("eval:", keep)
                         log.write(json.dumps(keep) + "\n")
                         log.flush()
+                        if tb_writer is not None:
+                            tb_writer.add_scalars(
+                                {f"val/{k}": v for k, v in keep.items()},
+                                step)
+                            tb_writer.flush()
                         key = (_best_key(em, args.save_best,
                                          args.occ_thresholds)
                                if args.save_best else None)
@@ -312,6 +330,8 @@ def main(argv=None) -> dict:
             saver.wait()
     finally:
         signal.signal(signal.SIGTERM, prev_handler)
+        if tb_writer is not None:
+            tb_writer.close()
         dataset.close()
         if val_ds is not None:
             val_ds.close()
