@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's VER volume path, its full forward and eval path,
 its training path, the VLN agent's evaluation and training paths, the VER
-server, the multi-process paths (in a process group of one), the temporal
-VER model with decoder_on_bev and the BEVFormer-2D family once on one
-NVIDIA GPU.
+server, the multi-process paths (in a process group of one: the data and
+view grid, tensor parallelism, the multi-slice grid, the pipeline), the
+temporal VER model with decoder_on_bev and the BEVFormer-2D family once on
+one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -171,6 +172,19 @@ Phases (any failure exits nonzero, nothing is caught):
      one-process eval; ``episode_metrics`` and ``evaluate_batched`` with
      the mesh over phase 8's 16 episodes equal to the one-process run's;
      the group destroyed;
+  10c. a second NCCL group of world 1: one ``train --tp-model`` step
+     (``make_tp_mesh(1, 1, 1)``, the state ``shard_state``-ed at the
+     default min_size, its parameters all-gathered for the step and cut
+     for AdamW) and one ``train --mesh 1,1,1`` step
+     (``make_multislice_mesh``: the two-level gradient average) at vocc.py
+     width, each against the plain step as 10b holds its own (1e-6);
+     ``tp_fraction``, the bytes at rest of the sharded and the replicated
+     state and the rule's bytes a rank at model 1 / 2 / 4 / 8;
+     ``pipeline_apply`` at stage 1 with 2 and 4 microbatches over 4 encoder
+     layers at get_occ.py width (batch 4 of phase 6's viewpoints, 900
+     queries, 6 cameras of 14 x 14, 8 points) against ``sequential_apply``:
+     outputs within 2e-5, gradients of sum(out**2) within rtol 5e-4 / atol
+     5e-5, 4 x M forward and 4 x M backward launches;
   11. the temporal VER model (get_occ.py / vocc.py widths with
      use_temporal_self_attn, seed 0): ``obtain_history_bev`` over 3
      frames of 4 viewpoints walking straight lines, then the current
@@ -1073,19 +1087,22 @@ def worst_relative(got, ref):
 
 
 def card_step(cfg, tc, host_batch, record=None, pin=None, mesh=None,
-              views=None):
+              views=None, weights=None, tp=False, keep=None):
     """One ``make_train_step`` on the card from the seed-0 weights: (the
     matched query of every GT slot of every match the step made, its
     metrics, every parameter's gradient, forward and backward launches and
     the nq of their last launches).  ``record`` / ``pin``: the ReLU masks
     (``utils.params.relu_masks``); ``mesh``: the step of ``train --mesh``
     (the weights broadcast from rank 0, the gradients all-reduced);
-    ``views``: the lift's view shard (default: the mesh's)."""
+    ``views``: the lift's view shard (default: the mesh's); ``weights``:
+    the seed-0 state_dict already drawn (else it is drawn here); ``tp``:
+    the state sharded on ``mesh`` (``train --tp-model``); ``keep``: a list
+    the train state is appended to."""
     from unittest import mock
 
     import torch
 
-    from vln_ver_tpu_torch.models import build_model
+    from vln_ver_tpu_torch.models import VoxelFormer, build_model
     from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
     from vln_ver_tpu_torch.train import (create_train_state, make_train_step,
                                          objective, to_device)
@@ -1098,12 +1115,22 @@ def card_step(cfg, tc, host_batch, record=None, pin=None, mesh=None,
         matches.append(out.cpu().flatten())
         return out
 
-    model = build_model(cfg, "cuda", seed=0)
+    if weights is None:
+        model = build_model(cfg, "cuda", seed=0)
+    else:
+        model = VoxelFormer(cfg)
+        model.load_state_dict(weights, strict=True)
+        model = model.to("cuda").eval()
     if mesh is not None:
         from vln_ver_tpu_torch.parallel.mesh import replicate
         replicate(mesh, model).shard_views(
             mesh.views if views is None else views)
     state = create_train_state(model, tc)
+    if tp:
+        from vln_ver_tpu_torch.parallel.tensor import shard_state
+        shard_state(mesh, state)
+    if keep is not None:
+        keep.append(state)
     batch = to_device(host_batch, torch.device("cuda"))
     KERNEL.launches = KERNEL_BWD.launches = 0
     KERNEL.last_nq = KERNEL_BWD.last_nq = None
@@ -2421,6 +2448,28 @@ def memory_h5():
             sys.modules["h5py"] = saved
 
 
+@contextlib.contextmanager
+def nccl_world_one():
+    """An NCCL process group of world 1 (``parallel.multihost``, a local
+    address and a free port) around the block; yields the rank's device,
+    destroys the group and restores the environment after."""
+    import torch
+
+    from vln_ver_tpu_torch.parallel import multihost
+    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
+    os.environ.update(env)
+    try:
+        dev = multihost.initialize_if_needed("cuda")
+        print(f"process group: backend {torch.distributed.get_backend()}, "
+              f"world {multihost.process_count()}, device {dev}")
+        yield dev
+    finally:
+        multihost.shutdown()
+        for k in env:
+            os.environ.pop(k, None)
+
+
 def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
                    card):
     """Phase 10b; returns the forward and backward launches of its mesh
@@ -2440,17 +2489,10 @@ def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
     from vln_ver_tpu_torch.get_occ import make_bev_only
     from vln_ver_tpu_torch.models import build_model
     from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
-    from vln_ver_tpu_torch.parallel import multihost
     from vln_ver_tpu_torch.parallel.mesh import ViewShard, make_mesh, replicate
     from vln_ver_tpu_torch.ver_writer import dump_volumes
 
-    env = dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
-               MASTER_ADDR="127.0.0.1", MASTER_PORT=str(_free_port()))
-    os.environ.update(env)
-    try:
-        dev = multihost.initialize_if_needed("cuda")
-        print(f"process group: backend {torch.distributed.get_backend()}, "
-              f"world {multihost.process_count()}, device {dev}")
+    with nccl_world_one() as dev:
         mesh = make_mesh((1, 1))
         views = ViewShard(torch.distributed.group.WORLD, 0, 1)
         dataset = [dict(features=feats[i], world2pixel=w2p[i],
@@ -2546,11 +2588,151 @@ def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
               f"one-process run's {'ok' if ok else 'FAIL'}")
         if not ok:
             fail("the mesh agent eval disagrees with the one-process run")
-    finally:
-        multihost.shutdown()
-        for k in env:
-            os.environ.pop(k, None)
     return fwd, bwd
+
+
+def grids_world_one(ver, weights, samples, card):
+    """Phase 10c; returns {path: (forward, backward launches)} of its
+    tensor-parallel step, multi-slice step and pipeline runs, and its
+    numbers."""
+    import torch
+
+    from vln_ver_tpu_torch import geometry
+    from vln_ver_tpu_torch.config import build_train_config, load_config
+    from vln_ver_tpu_torch.data.mp3d import collate
+    from vln_ver_tpu_torch.models.encoder import VoxelEncoderLayer
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    from vln_ver_tpu_torch.parallel import tensor
+    from vln_ver_tpu_torch.parallel.mesh import make_multislice_mesh
+    from vln_ver_tpu_torch.parallel.pipeline import (make_pp_mesh,
+                                                     pipeline_apply,
+                                                     sequential_apply)
+
+    t_phase = time.perf_counter()
+    launches, numbers = {}, {}
+    with nccl_world_one() as dev:
+        # train --tp-model and --mesh S,D,V steps against the plain step,
+        # as phase 10b holds its train --mesh step
+        cfg = load_config(os.path.join(REPO, "configs/verformer/vocc.py"))
+        batch = int(cfg["data"]["samples_per_gpu"])
+        tc = build_train_config(cfg, len(samples) // batch)
+        host_batch = collate(samples[:batch])
+        tp_mesh = tensor.make_tp_mesh(1, 1, 1)
+        states = []
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            plain = card_step(ver, tc, host_batch, weights=weights,
+                              keep=states)
+            tp = card_step(ver, tc, host_batch, mesh=tp_mesh,
+                           weights=weights, tp=True, keep=states)
+            sliced = card_step(ver, tc, host_batch,
+                               mesh=make_multislice_mesh(1, 1, 1),
+                               weights=weights)
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        hold_step("train --tp-model 1 step (make_tp_mesh(1, 1, 1), "
+                  "shard_state) under NCCL vs the plain step (card)", tp,
+                  plain, 1e-6, 1e-6, card)
+        hold_step("train --mesh 1,1,1 step (make_multislice_mesh(1, 1, 1)) "
+                  "under NCCL vs the plain step (card)", sliced, plain, 1e-6,
+                  1e-6, card)
+        launches["tp"], launches["multislice"] = tp[3], sliced[3]
+        mib = 2 ** 20
+        numbers.update(
+            tp_fraction=tensor.tp_fraction(states[1], tp_mesh),
+            tp_resident_mib=tensor.resident_bytes(states[1]) / mib,
+            replicated_resident_mib=tensor.resident_bytes(states[0]) / mib,
+            **{f"tp_rule_mib_model{m}": tensor.rule_bytes(states[0], m) / mib
+               for m in (1, 2, 4, 8)})
+        del states, plain, tp, sliced
+        print(f"tensor parallelism at vocc.py width: tp_fraction "
+              f"{numbers['tp_fraction']:.6f} of the parameter elements "
+              f"sharded; at rest (parameters and AdamW moments, fp32) "
+              f"{numbers['tp_resident_mib']:.2f} MiB a rank sharded over 1 "
+              f"against {numbers['replicated_resident_mib']:.2f} MiB "
+              f"replicated; by param_pspec at model 1 / 2 / 4 / 8: "
+              + " / ".join(f"{numbers[f'tp_rule_mib_model{m}']:.2f}"
+                           for m in (1, 2, 4, 8)) + " MiB a rank")
+        if not (numbers["tp_resident_mib"] == numbers["replicated_resident_mib"]
+                == numbers["tp_rule_mib_model1"]):
+            fail("the sharded state's bytes at rest are not the rule's")
+
+        # pipeline_apply at stage 1 over 4 encoder layers at get_occ.py
+        # width (the seed-0 model's three and a copy of its first) on 4
+        # of phase 6's viewpoints, against sequential_apply
+        layers = torch.nn.ModuleList([VoxelEncoderLayer(ver)
+                                      for _ in range(4)])
+        prefix = "pts_bbox_head.transformer.encoder.layers."
+        for i, layer in enumerate(layers):
+            pre = f"{prefix}{i % ver.encoder_layers}."
+            layer.load_state_dict({k[len(pre):]: v for k, v in
+                                   weights.items() if k.startswith(pre)})
+        layers = layers.to(dev).eval()
+        rows = collate(samples[:4])
+        feats = torch.from_numpy(rows["features"]).to(dev)
+        b = feats.shape[0]
+        value = feats.reshape(b, ver.num_cams, ver.feat_h * ver.feat_w,
+                              ver.in_channels).requires_grad_(True)
+        ref3d = geometry.voxel_reference_points(ver.bev_z, ver.bev_h,
+                                                ver.bev_w, device=dev)
+        cam_xy, mask = geometry.project_reference_points(
+            ref3d, torch.from_numpy(rows["world2pixel"]).to(dev),
+            torch.from_numpy(rows["origin_shift"]).to(dev),
+            pc_range=ver.pc_range)
+        cam_xy, mask = cam_xy[:, :, :, None, :], mask[:, :, :, None]
+        gen = torch.Generator().manual_seed(6)
+        query = torch.randn((b, ver.bev_num, ver.embed_dims),
+                            generator=gen).to(dev).requires_grad_(True)
+        shapes = ((ver.feat_h, ver.feat_w),)
+
+        def layer_fn(layer, h, value, cam_xy, mask):
+            return layer(h, value, cam_xy, mask, shapes)
+
+        def run(micro):
+            layers.zero_grad(set_to_none=True)
+            query.grad = value.grad = None
+            KERNEL.launches = KERNEL_BWD.launches = 0
+            args = (layer_fn, layers, query, value, cam_xy, mask)
+            out = (sequential_apply(*args) if micro is None else
+                   pipeline_apply(make_pp_mesh(1), *args,
+                                  microbatches=micro))
+            (out ** 2).sum().backward()
+            torch.cuda.synchronize()
+            return (out.detach(), [query.grad, value.grad]
+                    + [p.grad for p in layers.parameters()],
+                    (KERNEL.launches, KERNEL_BWD.launches))
+
+        ref = run(None)
+        fwd = bwd = 0
+        for micro in (2, 4):
+            out, grads, got = run(micro)
+            fwd, bwd = fwd + got[0], bwd + got[1]
+            err = float((out - ref[0]).abs().max())
+            ok_out = bool(torch.allclose(out, ref[0], rtol=2e-5, atol=2e-5))
+            bad = [i for i, (g, r) in enumerate(zip(grads, ref[1]))
+                   if not torch.allclose(g, r, rtol=5e-4, atol=5e-5)]
+            gerr = max(float((g - r).abs().max())
+                       for g, r in zip(grads, ref[1]))
+            want = (4 * micro, 4 * micro)
+            print(f"pipeline_apply(make_pp_mesh(1), 4 encoder layers, "
+                  f"microbatches={micro}) under NCCL vs sequential_apply at "
+                  f"batch {b}: max_abs_err={err:.3e} (rtol and atol 2e-5), "
+                  f"gradients of sum(out**2) max_abs_err={gerr:.3e} over "
+                  f"{len(grads)} tensors (rtol 5e-4, atol 5e-5), deform "
+                  f"launches forward + backward {got} (expected {want}) "
+                  f"{'ok' if ok_out and not bad and got == want else 'FAIL'}"
+                  f" [{card}]")
+            numbers[f"pipeline_m{micro}_max_abs_err"] = err
+            numbers[f"pipeline_m{micro}_grad_max_abs_err"] = gerr
+            if not ok_out or bad or got != want:
+                fail(f"the pipeline at {micro} microbatches: outputs "
+                     f"{'ok' if ok_out else 'differ'}, gradients {bad[:5]} "
+                     f"differ, launches {got} (expected {want})")
+        launches["pipeline"] = (fwd, bwd)
+    numbers["seconds"] = time.perf_counter() - t_phase
+    print(f"phase 10c: {numbers['seconds']:.2f}s [{card}]")
+    return launches, numbers
 
 
 def path_shape_timing(card):
@@ -3527,6 +3709,8 @@ def main() -> None:
     # -- phase 4b-4d: the sparse lift, the int8 upload, the image path ----
     extra = sparse_lift(model, ver, feats, w2p, shift, dense_vols,
                         N_VIEWPOINTS / main_s, card)
+    # the seed-0 weights, kept for phase 10c's models
+    seed0_weights = cpu_model.state_dict()
     extra.update(int8_upload(model, cpu_model, ver, feats, w2p, shift,
                              dense_vols, card))
     del cpu_model
@@ -3646,6 +3830,12 @@ def main() -> None:
     launches_mesh, bwd_launches_mesh = mesh_world_one(
         ver, feats, w2p, shift, dense_vols, samples, agent_env, card)
 
+    # -- phase 10c: NCCL of world 1: TP and multi-slice steps, pipeline ---
+    grid_launches, grid_numbers = grids_world_one(ver, seed0_weights,
+                                                  samples, card)
+    del seed0_weights
+    print(json.dumps({"grids": {**grid_numbers, "card": card}}))
+
     # -- phase 11: temporal VER (TSA) and decoder_on_bev -------------------
     temporal_launches, temporal_numbers = temporal_path(ver, samples, card)
     print(json.dumps({"temporal": {**temporal_numbers, "card": card}}))
@@ -3699,6 +3889,9 @@ def main() -> None:
         "launches_agent_train": agent_train["launches_fwd"],
         "launches_serve": launches_serve,
         "launches_mesh": launches_mesh,
+        "launches_tp": grid_launches["tp"][0],
+        "launches_multislice": grid_launches["multislice"][0],
+        "launches_pipeline": grid_launches["pipeline"][0],
         "launches_temporal": temporal_launches["history"],
         "launches_decoder_on_bev": temporal_launches["decoder_on_bev"],
         "launches_temporal_train": temporal_launches["train"][0],
@@ -3753,6 +3946,9 @@ def main() -> None:
         "launches_agent_train": agent_train["launches_bwd"],
         "launches_serve": 0,
         "launches_mesh": bwd_launches_mesh,
+        "launches_tp": grid_launches["tp"][1],
+        "launches_multislice": grid_launches["multislice"][1],
+        "launches_pipeline": grid_launches["pipeline"][1],
         "launches_temporal": 0,
         "launches_decoder_on_bev": 0,
         "launches_temporal_train": temporal_launches["train"][1],

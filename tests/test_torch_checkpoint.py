@@ -252,7 +252,8 @@ def test_train_cli_refusals(tmp_path, monkeypatch):
     # a mesh the world (one process) cannot hold
     with pytest.raises(ValueError, match="needs 2 processes"):
         train_main([CONFIG, "--device", "cpu", "--mesh", "2,1"])
-    with pytest.raises(NotImplementedError, match="item 13b"):
+    # a model axis the world (one process) cannot hold
+    with pytest.raises(ValueError, match="does not divide by view x model"):
         train_main([CONFIG, "--device", "cpu", "--tp-model", "2"])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -775,3 +775,95 @@ def test_bev2d_on_card_matches_cpu(cuda):
     two = build_bev2d(dataclasses.replace(cfg, num_levels=2), cuda)
     with pytest.raises(ValueError, match="one level"):
         two(feats.to(cuda), w2p.to(cuda), shift.to(cuda))
+
+
+@pytest.fixture
+def nccl_one(cuda, monkeypatch):
+    """A process group of one NCCL rank on the card, destroyed after."""
+    import socket
+
+    from vln_ver_tpu_torch.parallel import multihost
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    for k, v in dict(RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                     MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port)).items():
+        monkeypatch.setenv(k, v)
+    dev = multihost.initialize_if_needed("cuda")
+    try:
+        yield dev
+    finally:
+        multihost.shutdown()
+
+
+def test_tp_step_and_pipeline_under_nccl_of_one(nccl_one, monkeypatch):
+    """Tensor parallelism and the pipeline in an NCCL group of one: a step
+    of a state sharded on ``make_tp_mesh(1, 1)`` (min_size 128, so the
+    tiny model's matrices take the all-gather path) equals the plain step
+    under cudnn.deterministic, the parameters after it bit for bit; 4
+    encoder layers through ``pipeline_apply`` at stage 1 and 2
+    microbatches equal ``sequential_apply`` (2e-5), their gradients within
+    rtol 5e-4 / atol 5e-5, 4 x 2 forward and 4 x 2 backward launches."""
+    from vln_ver_tpu_torch.parallel.pipeline import (make_pp_mesh,
+                                                     pipeline_apply,
+                                                     sequential_apply)
+    from vln_ver_tpu_torch.parallel.tensor import (gathered, make_tp_mesh,
+                                                   shard_state)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+    cfg = dataclasses.replace(TINY, num_classes=17, occupancy_classes=16)
+    batch = _train_batch(cfg)
+    from vln_ver_tpu_torch.train import (TrainConfig, create_train_state,
+                                         make_train_step, to_device)
+    mesh = make_tp_mesh(1, 1)
+    tc = TrainConfig(warmup_steps=1, total_steps=10, matcher="host")
+    states = [create_train_state(build_model(cfg, nccl_one), tc)
+              for _ in range(2)]
+    shard_state(mesh, states[1], min_size=128)
+    assert states[1].tp.axes
+    losses = [float(make_train_step(cfg, tc, grid)(
+        state, to_device(batch, nccl_one), seed=0)["loss"])
+        for state, grid in zip(states, (None, mesh))]
+    assert losses[1] == pytest.approx(losses[0], rel=1e-6)
+    with gathered(states[1]):
+        for a, b in zip(states[0].model.parameters(),
+                        states[1].model.parameters()):
+            assert torch.equal(a, b)
+
+    # the encoder layers of a seed-4 model (a bare layer's parameters are
+    # uninitialised memory)
+    layers = build_model(dataclasses.replace(cfg, encoder_layers=4), nccl_one,
+                         seed=4).pts_bbox_head.transformer.encoder.layers
+    rng = np.random.default_rng(4)
+    b, nq, cams = 4, cfg.bev_num, cfg.num_cams
+
+    def t(a, grad=False):
+        return torch.from_numpy(a).to(nccl_one).requires_grad_(grad)
+    query = t(rng.standard_normal((b, nq, cfg.embed_dims)).astype(
+        np.float32), True)
+    value = t(rng.standard_normal((b, cams, cfg.feat_h * cfg.feat_w,
+                                   cfg.in_channels)).astype(np.float32))
+    ref = t(rng.uniform(0, 1, (b, cams, nq, 1, 2)).astype(np.float32))
+    mask = t(rng.random((b, cams, nq, 1)) < 0.5)
+    shapes = ((cfg.feat_h, cfg.feat_w),)
+
+    def fn(layer, h, value, ref, mask):
+        return layer(h, value, ref, mask, shapes)
+    res = []
+    for run in ("seq", "pp"):
+        layers.zero_grad(set_to_none=True)
+        query.grad = None
+        before = (KERNEL.launches, KERNEL_BWD.launches)
+        out = (sequential_apply(fn, layers, query, value, ref, mask)
+               if run == "seq" else
+               pipeline_apply(make_pp_mesh(1), fn, layers, query, value, ref,
+                              mask, microbatches=2))
+        (out ** 2).sum().backward()
+        res.append((out.detach(), [query.grad] + [p.grad for p in
+                                                  layers.parameters()],
+                    (KERNEL.launches - before[0],
+                     KERNEL_BWD.launches - before[1])))
+    (o0, g0, n0), (o1, g1, n1) = res
+    assert n0 == (4, 4) and n1 == (8, 8)
+    torch.testing.assert_close(o1, o0, rtol=2e-5, atol=2e-5)
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-5)

@@ -30,9 +30,11 @@ AGENT = ("agent/__init__.py", "agent/env.py", "agent/data.py",
          "agent/pretrain.py", "agent/cli_setup.py", "agent/crossmodal.py",
          "agent/update.py", "train_vln.py", "pretrain_vln.py",
          "convert_text_encoder.py", "convert_crossmodal.py")
-# the server and the multi-process modules
+# the server and the multi-process modules, tensor and pipeline
+# parallelism among them
 PARALLEL = ("serve.py", "parallel/__init__.py", "parallel/mesh.py",
-            "parallel/multihost.py", "agent/parallel.py")
+            "parallel/multihost.py", "agent/parallel.py",
+            "parallel/tensor.py", "parallel/pipeline.py")
 # the temporal VER model and the BEVFormer-2D family; nuscenes.py is the
 # port's own numpy copy of the JAX reader
 TEMPORAL = ("models/temporal.py", "models/bev2d.py", "convert/bev2d.py",
@@ -102,6 +104,8 @@ def test_parallel_modules_import_without_jax_or_a_process_group():
             "import vln_ver_tpu_torch.serve, vln_ver_tpu_torch.parallel,"
             " vln_ver_tpu_torch.parallel.mesh,"
             " vln_ver_tpu_torch.parallel.multihost,"
+            " vln_ver_tpu_torch.parallel.tensor,"
+            " vln_ver_tpu_torch.parallel.pipeline,"
             " vln_ver_tpu_torch.agent.parallel\n"
             "assert not dist.is_initialized()\n"
             "print('ok')")

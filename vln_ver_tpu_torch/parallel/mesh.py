@@ -1,10 +1,9 @@
-"""The (data, view) process grid (PyTorch port of
-``vln_ver_tpu/parallel/mesh.py``).
+"""The process grid (PyTorch port of ``vln_ver_tpu/parallel/mesh.py``).
 
 JAX expresses the parallelism as shardings over a device mesh and lets
 GSPMD insert the collectives.  Here a process is one card, and a
-:class:`Mesh` is the grid of the whole world, ``D x V = WORLD_SIZE``,
-rank ``r`` at ``(data, view) = divmod(r, V)``:
+:class:`Mesh` is the grid of the whole world, the product of its axes
+equal to ``WORLD_SIZE``, its ranks in row-major order of the axes:
 
 * ``data`` splits the batch (viewpoints): the DP axis.  The gradients are
   all-reduced over the world (:func:`allreduce_grads`), and the losses
@@ -17,6 +16,18 @@ rank ``r`` at ``(data, view) = divmod(r, V)``:
   hit count are all-reduced over the view group
   (``models/attention.SpatialCrossAttention``).  Every view rank then holds
   the same rows and computes the same post-lift network.
+* ``slice`` (:func:`make_multislice_mesh`, ``(slice, data, view)``) is a
+  node: the batch splits over ``(slice, data)`` jointly, the view group
+  stays inside a node, and the gradients are averaged within each node
+  before one all-reduce over the slice group crosses the nodes.
+* ``model`` (``parallel.tensor.make_tp_mesh``, ``(data, view, model)``)
+  holds the tensor-parallel shards of the parameters; its ranks hold the
+  same rows.
+* ``stage`` (``parallel.pipeline.make_pp_mesh``, ``(stage, data)``) holds
+  the pipeline's stages.
+
+The batch-carrying index and size, ``data_index`` and :attr:`Mesh.data_size`,
+are the joint ``s * D + d`` and ``S * D`` of the ``slice`` and ``data`` axes.
 
 :func:`data_parallel` marks a block in which the batch's rows are this
 rank's share of a global batch: dropout masks and the agent's MLM masks are
@@ -28,6 +39,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -39,6 +51,8 @@ from . import multihost
 # batch entries with a camera axis (axis 1), split over ``view``; "images"
 # is the fused image path's raw uint8 views (vln_ver_tpu/parallel/mesh.py:83)
 VIEW_KEYS = ("features", "world2pixel", "images")
+# the axes that split the batch, jointly in this order
+BATCH_AXES = ("slice", "data")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -52,20 +66,48 @@ class ViewShard:
 
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    shape: Tuple[int, int]          # (D, V)
-    data_index: int
+    """This rank's place in the grid and its process groups.  ``shape``
+    holds the sizes of ``axis_names`` and ``coords`` this rank's index on
+    each (default: ``(data_index, view_index)`` of a (data, view) grid);
+    ``groups`` the group along each other axis (``slice``, ``model``,
+    ``stage``) and ``local``, the ranks of this rank's slice."""
+    shape: Tuple[int, ...]
+    data_index: int                 # the batch shard, s * D + d
     view_index: int
-    data_group: object = None       # ranks of this view index (size D)
-    view_group: object = None       # ranks of this data index (size V)
+    data_group: object = None       # the batch axes' ranks (size S x D)
+    view_group: object = None       # the view axis' ranks (size V)
     world_group: object = None
+    axis_names: Tuple[str, ...] = ("data", "view")
+    coords: Tuple[int, ...] = ()
+    groups: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+    def __post_init__(self):
+        if not self.coords:
+            object.__setattr__(self, "coords",
+                               (self.data_index, self.view_index))
+
+    def size(self, axis: str) -> int:
+        """The size of ``axis`` (1 for an axis the grid lacks)."""
+        return dict(zip(self.axis_names, self.shape)).get(axis, 1)
+
+    def index(self, axis: str) -> int:
+        """This rank's index on ``axis`` (0 for an axis the grid lacks)."""
+        return dict(zip(self.axis_names, self.coords)).get(axis, 0)
+
+    def rank_of(self, **coords: int) -> int:
+        """The global rank at this rank's coordinates with ``coords``
+        replaced."""
+        at = [coords.get(n, c) for n, c in zip(self.axis_names, self.coords)]
+        return int(np.ravel_multi_index(at, self.shape))
 
     @property
     def data_size(self) -> int:
-        return self.shape[0]
+        """The number of batch shards, ``S x D``."""
+        return int(np.prod([self.size(a) for a in BATCH_AXES]))
 
     @property
     def view_size(self) -> int:
-        return self.shape[1]
+        return self.size("view")
 
     @property
     def distributed(self) -> bool:
@@ -80,9 +122,58 @@ class Mesh:
 
     @property
     def writer(self) -> bool:
-        """Whether this rank writes its data group's outputs (view rank 0:
-        every view rank holds the same rows)."""
-        return self.view_index == 0
+        """Whether this rank writes its data group's outputs (view and
+        model rank 0: those ranks hold the same rows)."""
+        return self.view_index == 0 and self.index("model") == 0
+
+
+def grid_mesh(axis_names: Sequence[str], shape: Sequence[int]) -> Mesh:
+    """The grid of ``axis_names`` with sizes ``shape`` over the whole world,
+    rank ``r`` at ``np.unravel_index(r, shape)``.  The product of ``shape``
+    must equal the world size.  Every rank calls this with the same
+    arguments: it creates the process groups, a collective call, every
+    group in the same order."""
+    names, shape = tuple(axis_names), tuple(int(s) for s in shape)
+    world = multihost.process_count()
+    if len(names) != len(shape) or min(shape) < 1:
+        raise ValueError(f"mesh shape {shape} for axes {names}")
+    if int(np.prod(shape)) != world:
+        raise ValueError(f"mesh {'x'.join(map(str, shape))} needs "
+                         f"{int(np.prod(shape))} processes, the world has "
+                         f"{world}")
+    rank = multihost.process_index()
+    coords = tuple(int(c) for c in np.unravel_index(rank, shape))
+    at = dict(zip(names, coords))
+    sizes = dict(zip(names, shape))
+    data_index = at.get("slice", 0) * sizes.get("data", 1) + at.get("data", 0)
+    kw = dict(axis_names=names, coords=coords)
+    if not multihost.is_distributed():
+        return Mesh(shape, data_index, at.get("view", 0), **kw)
+    grid = np.arange(world).reshape(shape)
+
+    def group(varying):
+        """The group over the ``varying`` axes through this rank: one
+        group for every point of the other axes, all of them created."""
+        axes = [names.index(a) for a in varying if a in names]
+        if not axes:
+            return None
+        rows = np.moveaxis(grid, axes, range(-len(axes), 0)).reshape(
+            -1, int(np.prod([shape[a] for a in axes])))
+        mine = None
+        for ranks in rows:
+            g = dist.new_group([int(r) for r in ranks])
+            if rank in ranks:
+                mine = g
+        return mine
+
+    data_group = group(BATCH_AXES)
+    view_group = group(("view",))
+    groups = {a: group((a,)) for a in ("slice", "model", "stage")
+              if a in names}
+    if "slice" in names:
+        groups["local"] = group(tuple(a for a in names if a != "slice"))
+    return Mesh(shape, data_index, at.get("view", 0), data_group, view_group,
+                dist.group.WORLD, groups=groups, **kw)
 
 
 def make_mesh(shape: Optional[Tuple[int, int]] = None) -> Mesh:
@@ -93,25 +184,38 @@ def make_mesh(shape: Optional[Tuple[int, int]] = None) -> Mesh:
     shape = (world, 1) if shape is None else tuple(int(s) for s in shape)
     if len(shape) != 2 or shape[0] < 1 or shape[1] < 1:
         raise ValueError(f"mesh shape must be (data, view), got {shape}")
-    d, v = shape
-    if d * v != world:
-        raise ValueError(f"mesh {d}x{v} needs {d * v} processes, the world "
-                         f"has {world}")
-    rank = multihost.process_index()
-    di, vi = divmod(rank, v)
-    if not multihost.is_distributed():
-        return Mesh(shape, di, vi)
-    data_group = view_group = None
-    # every rank creates every group, in the same order
-    for j in range(v):
-        g = dist.new_group([i * v + j for i in range(d)])
-        if j == vi:
-            data_group = g
-    for i in range(d):
-        g = dist.new_group([i * v + j for j in range(v)])
-        if i == di:
-            view_group = g
-    return Mesh(shape, di, vi, data_group, view_group, dist.group.WORLD)
+    return grid_mesh(("data", "view"), shape)
+
+
+def node_count() -> int:
+    """The nodes of a torchrun launch, ``WORLD_SIZE // LOCAL_WORLD_SIZE``
+    (1 without them)."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    return max(world // int(os.environ.get("LOCAL_WORLD_SIZE", world)), 1)
+
+
+def make_multislice_mesh(num_slices: int, data: int, view: int = 1) -> Mesh:
+    """The (slice, data, view) grid, slice-major: rank ``r = (s * D + d) *
+    V + v``.  A slice is a node of the launch (torchrun numbers ranks node
+    by node), so the view all-reduces stay inside a node and the only
+    collective across nodes is the gradient all-reduce over the slice
+    group (:func:`allreduce_grads`).  On more than one node the node
+    count must be ``num_slices``: any other split would put nodes inside
+    the data and view groups (vln_ver_tpu/parallel/mesh.py:61-69).  On one
+    node (the CPU tests, one card) the same order is a plain reshape."""
+    nodes = node_count()
+    if nodes > 1 and nodes != num_slices:
+        raise ValueError(
+            f"num_slices={num_slices} but the launch spans {nodes} nodes "
+            f"(WORLD_SIZE // LOCAL_WORLD_SIZE); pass num_slices={nodes} so "
+            "the 'slice' axis is the axis across nodes")
+    return grid_mesh(("slice", "data", "view"), (num_slices, data, view))
+
+
+def data_axis_size(mesh: Mesh) -> int:
+    """The product of the batch-carrying axes (``slice``, ``data``): the
+    granularity batch dims must divide for :func:`shard_batch`."""
+    return mesh.data_size
 
 
 def parse_eval_mesh(arg: Optional[str]) -> Optional[Mesh]:
@@ -156,7 +260,8 @@ def shard_views(mesh: Mesh, batch: Dict) -> Dict:
 
 
 def shard_batch(mesh: Mesh, batch: Dict) -> Dict:
-    """This rank's rows (the batch split D ways, in order) and, for the
+    """This rank's rows (the batch split ``S x D`` ways over the batch
+    axes, in order of the joint index) and, for the
     :data:`VIEW_KEYS`, its camera block.  Arrays, tensors and per-row lists
     (tokens) are split; other entries stay whole."""
     d, di = mesh.data_size, mesh.data_index
@@ -209,8 +314,8 @@ def active_mesh() -> Optional[Mesh]:
 
 
 def data_size() -> int:
-    """The number of data ranks sharing the global batch (1 outside
-    :func:`data_parallel`)."""
+    """The number of batch shards (``S x D``) sharing the global batch (1
+    outside :func:`data_parallel`)."""
     return 1 if _ACTIVE is None else _ACTIVE.data_size
 
 
@@ -265,7 +370,10 @@ def allreduce_grads(mesh: Mesh, params: Sequence[torch.nn.Parameter]
     """Average the parameters' gradients over the world, in one flat
     all-reduce in a fixed order (a parameter autograd left without one
     takes a zero gradient, so no rank waits on another's unused
-    parameter); call after the backward and before the clip."""
+    parameter); call after the backward and before the clip.  On a
+    multi-slice grid the average is taken in two levels, over the ranks
+    of each slice and then over the slice group, so that one all-reduce
+    crosses the nodes."""
     if not mesh.distributed:
         return
     params = [p for p in params if p.requires_grad]
@@ -273,8 +381,11 @@ def allreduce_grads(mesh: Mesh, params: Sequence[torch.nn.Parameter]
         if p.grad is None:
             p.grad = torch.zeros_like(p)
     flat = torch.cat([p.grad.reshape(-1) for p in params])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.world_group)
-    flat /= dist.get_world_size(mesh.world_group)
+    levels = ((mesh.groups["local"], mesh.groups["slice"])
+              if "slice" in mesh.groups else (mesh.world_group,))
+    for group in levels:
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        flat /= dist.get_world_size(group)
     off = 0
     for p in params:
         n = p.numel()

@@ -25,7 +25,12 @@ environment), optionally with each viewpoint's cameras split over V:
 Each global batch of ``--batch-size`` (which must divide by D) is split
 over the data ranks; the step equals the one-process step on the global
 batch (``train.step``).  Rank 0 writes the checkpoints and the log; every
-rank restores.
+rank restores.  ``--mesh S,D,V`` is the multi-slice grid
+(``parallel.mesh.make_multislice_mesh``: S nodes, the batch split over
+S x D); ``--tp-model M`` shards the parameters and AdamW moments over M
+ranks (``parallel.tensor``) on a (D, V, M) grid, D from ``--mesh D[,V]``
+or the world over V x M.  Checkpoints are the replicated state's under
+every grid.
 """
 
 from __future__ import annotations
@@ -70,9 +75,11 @@ def parse_args(argv=None):
                         "(torch.utils.checkpoint); the same numbers")
     p.add_argument("--mesh", type=str, default=None,
                    help="'D[,V]': data x view process grid over the world "
-                        "(torchrun); default D = the world, V = 1")
+                        "(torchrun); default D = the world, V = 1; 'S,D,V': "
+                        "the multi-slice grid of S nodes")
     p.add_argument("--tp-model", type=int, default=1,
-                   help="tensor-parallel training; not ported yet")
+                   help="M > 1: shard the parameters and AdamW moments "
+                        "over M ranks of a (data, view, model) grid")
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' for the plain path")
     return p.parse_args(argv)
@@ -88,13 +95,35 @@ def _best_key(metrics: dict, name: str, thresholds) -> str | None:
     return first if first in metrics else (cands[0] if cands else None)
 
 
+def train_mesh(arg, tp_model: int):
+    """The grid of ``--mesh`` and ``--tp-model`` (tools/train.py:139-152):
+    with ``tp_model > 1`` the (data, view, model) grid, D the first value
+    of ``--mesh`` or the world over V x M; a 3-value ``--mesh`` the
+    multi-slice grid; else ``parse_eval_mesh`` (None for one process
+    without the flag)."""
+    from ..parallel import multihost
+    from ..parallel.mesh import make_multislice_mesh, parse_eval_mesh
+    from ..parallel.tensor import make_tp_mesh
+    shape = tuple(int(x) for x in arg.split(",")) if arg else None
+    if tp_model > 1:
+        if shape and len(shape) > 2:
+            raise ValueError(f"--tp-model takes --mesh 'D[,V]', got {arg!r}")
+        view = shape[1] if shape and len(shape) > 1 else 1
+        world = multihost.process_count()
+        if shape is None and world % (view * tp_model):
+            raise ValueError(f"--tp-model {tp_model}: the world of {world} "
+                             f"processes does not divide by view x model = "
+                             f"{view * tp_model}")
+        data = shape[0] if shape else world // (view * tp_model)
+        return make_tp_mesh(data, tp_model, view)
+    if shape and len(shape) == 3:
+        return make_multislice_mesh(*shape)
+    return parse_eval_mesh(arg)
+
+
 def main(argv=None) -> dict:
     """Runs the training; returns the metrics of the last step taken."""
     args = parse_args(argv)
-    if args.tp_model > 1:
-        raise NotImplementedError(
-            "--tp-model (tensor-parallel training) is not ported yet "
-            "(ROADMAP Queue 1, item 13b)")
     if args.save_best and 0 < args.eval_limit < 256:
         print(f"WARNING: --save-best {args.save_best!r} with --eval-limit "
               f"{args.eval_limit}: best-checkpoint selection on a small "
@@ -108,7 +137,8 @@ def main(argv=None) -> dict:
     from ..data.synthetic import make_synthetic_dataset
     from ..models.detector import build_model
     from ..parallel import multihost
-    from ..parallel.mesh import parse_eval_mesh, replicate, shard_views
+    from ..parallel.mesh import replicate, shard_views
+    from ..parallel.tensor import gathered, shard_state, tp_fraction
     from ..runtime import resolve_device
     from ..utils.checkpoint import (AsyncSaver, latest_step, restore_state,
                                     save_state)
@@ -117,7 +147,7 @@ def main(argv=None) -> dict:
     from .step import make_train_step
 
     device = multihost.initialize_if_needed(resolve_device(args.device))
-    mesh = parse_eval_mesh(args.mesh)
+    mesh = train_mesh(args.mesh, args.tp_model)
     # rank 0 writes the checkpoints and the logs
     writer = multihost.process_index() == 0
     cfg = apply_cfg_options(load_config(args.config), args.cfg_options)
@@ -173,6 +203,10 @@ def main(argv=None) -> dict:
             restore_state(ckpt_dir, found, state)
             start_step = state.step
             print(f"resumed from step {start_step}")
+    if args.tp_model > 1:
+        shard_state(mesh, state)
+        print(f"mesh {dict(zip(mesh.axis_names, mesh.shape))}: "
+              f"{tp_fraction(state, mesh):.4f} of the parameters sharded")
     step_fn = make_train_step(ver, tc, mesh)
     log_interval = args.log_interval or int(log_cfg.get("interval", 50))
     # the reference's log_config hooks (vocc.py:286-291): the jsonl log
@@ -201,13 +235,14 @@ def main(argv=None) -> dict:
 
     saver = AsyncSaver() if args.async_ckpt and writer else None
 
-    def save(step_dir_root, step_no):
-        if not writer:
-            return
-        if saver is not None:
-            saver.save(step_dir_root, step_no, state)
-        else:
-            save_state(step_dir_root, step_no, state)
+    def save(step_dir_root, step_no, via=None):
+        """Every rank calls this: a sharded state is gathered, then rank 0
+        writes it (``via`` an AsyncSaver, else synchronously)."""
+        with gathered(state):
+            if via is not None:
+                via.save(step_dir_root, step_no, state)
+            elif writer:
+                save_state(step_dir_root, step_no, state)
     # preemption: finish the step in flight, write a synchronous
     # checkpoint and exit 0, so that --resume continues from there
     got_signal: list = []
@@ -247,16 +282,14 @@ def main(argv=None) -> dict:
                     if got_signal:
                         if saver is not None:
                             saver.wait()
-                        if writer:
-                            save_state(ckpt_dir, step, state)
+                        save(ckpt_dir, step)
                         print(f"signal {got_signal[0]}: checkpoint saved at "
                               f"step {step}; resume with --resume")
                         return {k: float(v) for k, v in out.items()}
                     if step % log_interval == 0 or step == total_steps:
                         metrics = {k: float(v) for k, v in out.items()}
                         if metrics["sca_overflow"] > 0:
-                            if writer:
-                                save_state(ckpt_dir, step, state)
+                            save(ckpt_dir, step)
                             raise SystemExit(
                                 f"sca_query_capacity overflow at step {step}"
                                 f": {int(metrics['sca_overflow'])} visible "
@@ -279,7 +312,7 @@ def main(argv=None) -> dict:
                               f"occ={metrics.get('loss_occupancy', 0):.4f} "
                               f"({metrics['sec_per_step']:.2f}s/step)")
                     if step % args.ckpt_interval == 0 or step == total_steps:
-                        save(ckpt_dir, step)
+                        save(ckpt_dir, step, saver)
                     if args.eval_interval and (step % args.eval_interval == 0
                                                or step == total_steps):
                         from ..evaluation.runner import evaluate_model
@@ -295,12 +328,16 @@ def main(argv=None) -> dict:
                                     feat_hw=ver.feat_h)
                         if val_ds is None:
                             continue
-                        em = evaluate_model(
-                            model, val_ds,
-                            occ_thresholds=tuple(args.occ_thresholds),
-                            limit=args.eval_limit or None,
-                            classes=tuple(val_kw.get("classes", ())),
-                            batch_size=d, mesh=mesh)
+                        # the full parameters; the rows split over the
+                        # batch axes alone, so model and view ranks count
+                        # each viewpoint once
+                        with gathered(state, moments=False):
+                            em = evaluate_model(
+                                model, val_ds,
+                                occ_thresholds=tuple(args.occ_thresholds),
+                                limit=args.eval_limit or None,
+                                classes=tuple(val_kw.get("classes", ())),
+                                batch_size=d, mesh=mesh)
                         keep = {k: round(float(v), 4) for k, v in em.items()
                                 if k.startswith(("mAP", "mAR", "miou", "iou",
                                                  "occ_"))}
@@ -321,9 +358,8 @@ def main(argv=None) -> dict:
                                   f"matches no eval metric {sorted(keep)}")
                         if key is not None and float(em[key]) > best:
                             best = float(em[key])
-                            if writer:
-                                save_state(os.path.join(
-                                    args.work_dir, "ckpt_best"), step, state)
+                            save(os.path.join(args.work_dir, "ckpt_best"),
+                                 step)
                             print(f"new best {args.save_best}={best:.4f} at "
                                   f"step {step}")
         if saver is not None:

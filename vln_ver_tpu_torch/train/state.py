@@ -20,7 +20,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, List
+from typing import Callable, List, Optional
 
 import numpy as np
 import torch
@@ -102,11 +102,13 @@ def global_norm(grads: List[torch.Tensor]) -> torch.Tensor:
 class TrainState:
     """The model, its AdamW and the number of updates taken (the index of
     the next update into the schedule).  The port updates the model in
-    place."""
+    place.  ``tp``: the tensor-parallel layout of a sharded state
+    (``parallel.tensor.shard_state``), None for a replicated one."""
     model: nn.Module
     optimizer: torch.optim.Optimizer
     tc: TrainConfig
     step: int = 0
+    tp: Optional[object] = None
 
     def __post_init__(self):
         self.schedule = make_lr_schedule(self.tc)
@@ -114,7 +116,9 @@ class TrainState:
     def apply_gradients(self) -> torch.Tensor:
         """Clip the gradients the backward left on the parameters and take
         one AdamW update; returns the gradient's global norm before the
-        clip (no host sync)."""
+        clip (no host sync).  A sharded state clips by the norm of the full
+        gradients, then cuts the parameters and their gradients to this
+        rank's slices for the update."""
         params = [p for p in self.model.parameters() if p.requires_grad]
         for p in params:
             if p.grad is None:
@@ -123,6 +127,8 @@ class TrainState:
         gnorm = global_norm(grads)
         clip = self.tc.grad_clip_norm
         torch._foreach_mul_(grads, clip / torch.clamp_min(gnorm, clip))
+        if self.tp is not None:
+            self.tp.shard()
         lr = self.schedule(self.step)
         for group in self.optimizer.param_groups:
             group["lr"] = lr

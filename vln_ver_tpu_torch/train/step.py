@@ -45,11 +45,16 @@ def make_train_step(cfg: VERConfig, tc: TrainConfig,
     under ``data_parallel`` (global avg factors, dropout masks drawn for
     the global batch), the gradients are averaged over the world before
     the clip, and the metrics are the global batch's (the losses averaged
-    over the data group, ``sca_overflow`` the world's largest)."""
+    over the data group, ``sca_overflow`` the world's largest).  A
+    tensor-parallel ``state`` (``state.tp``, on a ``make_tp_mesh`` grid) has
+    its full parameters gathered for the forward and the backward and is
+    updated on its slices (``TrainState.apply_gradients``)."""
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    seed: int) -> Dict[str, torch.Tensor]:
         model = state.model
+        if state.tp is not None:
+            state.tp.gather()
         dev = next(model.parameters()).device
         model.train()
         devices = [dev.index] if dev.type == "cuda" else []

@@ -8,6 +8,9 @@ A checkpoint is the directory ``<ckpt_dir>/step_NNNNNNNN`` holding
   ``python -m vln_ver_tpu_torch.test --checkpoint`` read;
 * ``train_state.pth``: the AdamW state and the step.
 
+A tensor-parallel state is written and read in its replicated layout, so
+its files are those of a replicated state and resume under any grid.
+
 A model-only checkpoint (:func:`save_model`, for instance the VLN
 policy's, which ``python -m vln_ver_tpu_torch.test_vln --checkpoint``
 reads) is the same directory with ``model.pth`` alone.
@@ -29,6 +32,8 @@ from typing import Dict, List, Optional
 
 import torch
 
+from ..parallel.tensor import gathered
+
 _STEP_RE = re.compile(r"^step_(\d+)$")
 MODEL_FILE = "model.pth"
 STATE_FILE = "train_state.pth"
@@ -45,7 +50,14 @@ def _to_host(obj):
 
 
 def host_snapshot(state) -> Dict:
-    """A host copy of a :class:`~vln_ver_tpu_torch.train.TrainState`."""
+    """A host copy of a :class:`~vln_ver_tpu_torch.train.TrainState`.  A
+    tensor-parallel state must be in its replicated layout
+    (``parallel.tensor.gathered``), so that the files are those of a
+    replicated state."""
+    tp = getattr(state, "tp", None)
+    if tp is not None and not (tp.params_full and tp.moments_full):
+        raise RuntimeError("a sharded train state is saved inside "
+                           "parallel.tensor.gathered(state)")
     return {"model": _to_host(state.model.state_dict()),
             "optimizer": _to_host(state.optimizer.state_dict()),
             "step": int(state.step)}
@@ -132,17 +144,21 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
 
 def restore_state(ckpt_dir: str, step: Optional[int], state):
     """Load step ``step`` of ``ckpt_dir`` into ``state`` (its model, its
-    optimizer and its step count), in place; returns ``state``."""
+    optimizer and its step count), in place; returns ``state``.  A
+    tensor-parallel state takes its slices of the full tensors (every rank
+    calls this)."""
     if step is None:
         raise FileNotFoundError(
             f"no completed checkpoint (step_NNNNNNNN) under {ckpt_dir}")
     path = step_dir(ckpt_dir, step)
     dev = next(state.model.parameters()).device
-    state.model.load_state_dict(torch.load(
-        os.path.join(path, MODEL_FILE), map_location=dev, weights_only=True))
-    saved = torch.load(os.path.join(path, STATE_FILE), map_location=dev,
-                       weights_only=True)
-    state.optimizer.load_state_dict(saved["optimizer"])
+    with gathered(state):
+        state.model.load_state_dict(torch.load(
+            os.path.join(path, MODEL_FILE), map_location=dev,
+            weights_only=True))
+        saved = torch.load(os.path.join(path, STATE_FILE), map_location=dev,
+                           weights_only=True)
+        state.optimizer.load_state_dict(saved["optimizer"])
     state.step = int(saved["step"])
     return state
 
