@@ -54,6 +54,23 @@ Phases (any failure exits nonzero, nothing is caught):
      both kernels at PATH_SHAPES (graph time fp32 and bf16, the plain
      version and its autograd, the bounds and floors), and at
      HEADLINE_SHAPES the same (the forward alone at 288 slots);
+  5b. the refine_occ upsampler's two routes at vocc.py width (768
+     channels, the 4 x 15 x 15 grid to 120 x 120 in three stages, random
+     weights from seed 0 with biases drawn non-zero), fp32 and bf16, batch
+     8 and 2: ``models.head.OccUpsampler`` (the even-grid factorisation
+     the model runs) against ``dense_reference`` (the reference's dense
+     ConvTranspose3d stack on the same parameters): the full output and
+     ``informative``'s even grid plus bias, then the gradients of the
+     input, every weight and bias through each (fp32: outputs within rtol
+     1e-4 / atol 1e-4, gradients within 1e-4 in relative L2; bf16: 2e-2
+     in relative L2 for both), and at batch 2 the factorised backward run
+     twice under cudnn.deterministic, bitwise equal; stage 1's fp32
+     weight gradient within 1e-5 of a float64 run in relative L2 (printed
+     beside the 2D-convolution form's).  Print each route's
+     device ms (CUDA events) forward, and forward with backward, beside
+     its GFLOP a viewpoint (318.5 and 1,672 at this width; a backward
+     counted as twice the forward) and its share of the card's fp32 /
+     bf16 peak; an ``upsampler`` JSON line;
   6. run the full forward and the eval path as ``python -m
      vln_ver_tpu_torch.test`` does (configs/verformer/vocc.py at full
      width, the same random weights from seed 0, 8 synthetic viewpoints
@@ -321,6 +338,13 @@ HEADLINE_SHAPES = [
     ("36-view B=2 nq=192", 72, HEADLINE_QCAP, True),
 ]
 PLAIN_SLOTS = 72
+# phase 5b: the upsampler at the headline's batch and the eval batch; its
+# bf16 holds against the dense route in relative L2 (several bf16
+# roundings of the tap and phase sums against one)
+UPSAMPLER_BATCHES = (8, 2)
+UPSAMPLER_BF16_REL = 2e-2
+# H100 SXM bf16 tensor-core peak, dense (NVIDIA data sheet)
+BF16_FLOP_PER_S = 989e12
 
 
 def fail(msg: str) -> None:
@@ -589,6 +613,192 @@ def stage_times(stages, run):
     torch.cuda.synchronize()
     return {name: sum(a.elapsed_time(b) for a, b in evs)
             for name, evs in spans.items()}
+
+
+def upsampler_flop(c, z, h, w, stages):
+    """(factorised, dense) FLOP of one viewpoint through the upsampler.
+    The factorisation runs 25 (y, x) taps for each cell of stage 1's even
+    grid and, summed over the four parity slices, for each cell of a later
+    stage's input grid, over the in-range z plane pairs (3z - 4 for z > 2:
+    the middle tap on every plane, the outer two on z - 2 each); the dense
+    transposed convolution runs all 75 taps of every input position."""
+    pairs = 3 * z - 4 if z > 2 else z
+    cells = h * w * (1 + sum(4 ** (s - 2) for s in range(2, stages + 1)))
+    positions = z * h * w * sum(4 ** s for s in range(stages))
+    return (2 * c * c * 25 * pairs * cells, 2 * c * c * 75 * positions)
+
+
+def rel_l2(got, ref):
+    """||got - ref|| / ||ref||, in float64."""
+    ref = ref.detach().double()
+    return float((got.detach().double() - ref).norm()
+                 / ref.norm().clamp_min(1e-300))
+
+
+def stage1_weight_grad_errors(gen):
+    """Relative L2 error, against a float64 run, of the fp32 weight
+    gradient of stage 1's middle z-tap (the 5 x 5 correlation on the 15 x
+    15 grid, 768 channels, 8 planes: batch 2 of vocc.py's grid) in the two
+    forms ``head._zslab`` could take: depth-1 3D convolutions (the one it
+    takes) and 2D convolutions over (planes, C, H, W)."""
+    import torch
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    x = torch.randn(1, 8, 15, 15, 768, device=dev, generator=gen)
+    k = torch.randn(768, 768, 5, 5, device=dev, generator=gen) / 1920 ** 0.5
+    g = torch.randn(1, 8, 15, 15, 768, device=dev, generator=gen)
+    forms = {
+        "3d": lambda x, k: F.conv3d(x.permute(0, 4, 1, 2, 3), k[:, :, None],
+                                    padding=(0, 2, 2)).permute(0, 2, 3, 4, 1),
+        "2d": lambda x, k: F.conv2d(x[0].permute(0, 3, 1, 2), k,
+                                    padding=2).permute(0, 2, 3, 1)[None]}
+    kd = k.double().requires_grad_()
+    ref = torch.autograd.grad(forms["3d"](x.double(), kd), kd, g.double())[0]
+    errs = {}
+    for name, form in forms.items():
+        kf = k.clone().requires_grad_()
+        errs[name] = rel_l2(torch.autograd.grad(form(x, kf), kf, g)[0], ref)
+    return errs
+
+
+def upsampler_routes(card):
+    """Phase 5b: ``OccUpsampler`` against its dense plain reference at
+    vocc.py width; returns the ``upsampler`` JSON line's numbers."""
+    import torch
+
+    from vln_ver_tpu_torch.config import build_ver_config, load_config
+    from vln_ver_tpu_torch.models.head import (OccUpsampler,
+                                               dense_reference,
+                                               upsampler_stages)
+    from vln_ver_tpu_torch.runtime import fp32_precision
+
+    dev = torch.device("cuda")
+    ver = build_ver_config(load_config(
+        os.path.join(REPO, "configs/verformer/vocc.py")))
+    c, z, h, w = ver.embed_dims, ver.bev_z, ver.bev_h, ver.bev_w
+    n = upsampler_stages(ver)
+    flop = dict(zip(("factorised", "dense"), upsampler_flop(c, z, h, w, n)))
+    numbers = {f"gflop_{k}": v / 1e9 for k, v in flop.items()}
+    print(f"upsampler at vocc.py width: {c} channels, ({z}, {h}, {w}) -> "
+          f"({z}, {ver.occ_ydim}, {ver.occ_xdim}) in {n} stages; "
+          f"{flop['factorised'] / 1e9:.1f} GFLOP a viewpoint factorised, "
+          f"{flop['dense'] / 1e9:.1f} dense")
+    gen = torch.Generator().manual_seed(0)
+    cuda_gen = torch.Generator(device=dev).manual_seed(0)
+    for dtype, peak in ((torch.float32, FP32_FLOP_PER_S),
+                        (torch.bfloat16, BF16_FLOP_PER_S)):
+        name = "fp32" if dtype == torch.float32 else "bf16"
+        up = OccUpsampler(c, n, dtype)
+        with torch.no_grad():
+            for stage in up:
+                stage.reset_parameters(gen)
+                stage.bias.normal_(0.0, 0.1, generator=gen)
+        up.to(dev)
+        dense = dense_reference(up)
+        params = [p for stage in up for p in (stage.weight, stage.bias)]
+        grad_names = ["input"] + [f"{i}.{p}" for i in range(n)
+                                  for p in ("weight", "bias")]
+
+        def routes(x):
+            """The factorised full output and (e + bias), the dense
+            output and its even cells, all NDHWC."""
+            e, bias = up.informative(x)
+            ref = dense(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+            return up(x), e + bias, ref, ref[:, :, ::2, ::2]
+
+        for b in UPSAMPLER_BATCHES:
+            x = torch.randn(b, z, h, w, c, device=dev, generator=cuda_gen)
+            x.requires_grad_()
+            with fp32_precision(dtype):
+                full, even, ref, ref_even = routes(x)
+                g = torch.randn(full.shape, device=dev, generator=cuda_gen,
+                                dtype=full.dtype)
+                g_even = g[:, :, ::2, ::2]
+                errs = {}
+                for what, got, want in (("full", full, ref),
+                                        ("informative", even, ref_even)):
+                    errs[what] = rel_l2(got, want)
+                    if dtype == torch.float32:
+                        errs[what + " max_abs"], ok = close(got, want, 1e-4,
+                                                            1e-4)
+                    else:
+                        ok = errs[what] <= UPSAMPLER_BF16_REL
+                    if not ok:
+                        fail(f"upsampler {name} B={b}: the factorised "
+                             f"{what} output disagrees with the dense "
+                             f"reference ({errs})")
+                for what, out, out_ref, cot in (
+                        ("full", full, ref, g),
+                        ("informative", even, ref_even, g_even)):
+                    got = torch.autograd.grad(out, [x, *params], cot,
+                                              retain_graph=True)
+                    want = torch.autograd.grad(out_ref, [x, *params], cot,
+                                               retain_graph=True)
+                    grad_errs = dict(zip(grad_names, (
+                        rel_l2(a, r) for a, r in zip(got, want))))
+                    worst = max(grad_errs, key=grad_errs.get)
+                    errs[what + " grads"] = grad_errs[worst]
+                    limit = (1e-4 if dtype == torch.float32
+                             else UPSAMPLER_BF16_REL)
+                    if grad_errs[worst] > limit:
+                        fail(f"upsampler {name} B={b}: the factorised "
+                             f"{what} route's gradients disagree with the "
+                             f"dense reference's, worst {worst} (limit "
+                             f"{limit}; relative L2: {grad_errs})")
+                del full, even, ref, ref_even
+                if b == UPSAMPLER_BATCHES[-1]:
+                    saved = torch.backends.cudnn.deterministic
+                    torch.backends.cudnn.deterministic = True
+                    try:
+                        runs = [torch.autograd.grad(up(x), [x, *params], g)
+                                for _ in range(2)]
+                    finally:
+                        torch.backends.cudnn.deterministic = saved
+                    if not all(torch.equal(a, r) for a, r in zip(*runs)):
+                        fail(f"upsampler {name} B={b}: two backward runs "
+                             "under cudnn.deterministic differ")
+                    del runs
+                with torch.no_grad():
+                    xd = x.detach()
+                    xn = xd.permute(0, 4, 1, 2, 3)
+                    t = {"factorised_informative": time_ms(
+                        lambda: up.informative(xd), iters=3, warmup=1),
+                         "factorised_full": time_ms(lambda: up(xd), iters=3,
+                                                    warmup=1),
+                         "dense": time_ms(lambda: dense(xn), iters=3,
+                                          warmup=1)}
+                t["factorised_train"] = time_ms(lambda: torch.autograd.grad(
+                    up(x), [x, *params], g), iters=2, warmup=1)
+                t["dense_train"] = time_ms(lambda: torch.autograd.grad(
+                    dense(x.permute(0, 4, 1, 2, 3)), [x, *params],
+                    g.permute(0, 4, 1, 2, 3)), iters=2, warmup=1)
+            share = {k: b * flop["dense" if k.startswith("dense")
+                                 else "factorised"]
+                     * (3 if k.endswith("train") else 1) / (v / 1e3) / peak
+                     for k, v in t.items()}
+            numbers[f"{name}_b{b}"] = {"ms": t, "peak_share": share,
+                                       "errors": errs}
+            print(f"upsampler {name} B={b}: factorised vs dense "
+                  + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                  + " ok; device ms (CUDA events): " + ", ".join(
+                      f"{k} {v:.3f} ({100 * share[k]:.1f}% of the {name} "
+                      "peak)" for k, v in t.items())
+                  + f"; dense / factorised forward "
+                  f"{t['dense'] / t['factorised_full']:.2f}x [{card}]")
+            del x, g, g_even
+        del up, dense, params
+    with fp32_precision(torch.float32):
+        wgrad = stage1_weight_grad_errors(cuda_gen)
+    numbers["stage1_weight_grad_rel_l2"] = wgrad
+    print(f"stage-1 weight gradient in fp32 against float64 (relative L2): "
+          f"depth-1 3D convolutions {wgrad['3d']:.3e} (the route's), 2D "
+          f"convolutions {wgrad['2d']:.3e} [{card}]")
+    if wgrad["3d"] > 1e-5:
+        fail(f"the upsampler's stage-1 weight gradient is {wgrad['3d']:.3e} "
+             "off a float64 run in relative L2 (limit 1e-5)")
+    torch.cuda.empty_cache()
+    return numbers
 
 
 def full_forward_and_eval(model, ver, card):
@@ -3253,15 +3463,21 @@ def headline_breakdown(model, ins, card):
     times = stage_times(stages, one)
     out = {"forward_ms": last["forward"], **{f"{k}_ms": v
                                              for k, v in times.items()}}
-    # the upsampler alone on its own input, with cuDNN's heuristic choice
-    # and with its benchmarked one (cudnn.benchmark, never set elsewhere)
+    # the upsampler alone on its own input, called as the forward calls
+    # it (the default layout asks for ``informative``), with cuDNN's
+    # heuristic choice and with its benchmarked one (cudnn.benchmark,
+    # never set elsewhere)
     captured = {}
-    hook = head.up_sample.register_forward_pre_hook(
-        lambda mod, args: captured.setdefault("x", args[0].detach()))
+
+    def capture(mod, args, kwargs):
+        captured.setdefault("call", (args[0].detach(), kwargs))
+
+    hook = head.up_sample.register_forward_pre_hook(capture,
+                                                    with_kwargs=True)
     with torch.inference_mode():
         model(*ins)
     hook.remove()
-    upsampler = (head.up_sample, captured["x"])
+    upsampler = (head.up_sample, *captured["call"])
     for flag in (False, True):
         torch.backends.cudnn.benchmark = flag
         out[f"upsampler_alone_ms_benchmark_{flag}"] = upsampler_ms(
@@ -3296,12 +3512,12 @@ def headline_breakdown(model, ins, card):
     return out, upsampler
 
 
-def upsampler_ms(up, x, calls=5):
-    """Device ms of one call of the upsampler ``up`` on ``x`` (CUDA events
-    over ``calls`` warm calls)."""
+def upsampler_ms(up, x, kwargs, calls=5):
+    """Device ms of one call ``up(x, **kwargs)`` of the upsampler (CUDA
+    events over ``calls`` warm calls)."""
     import torch
     with torch.inference_mode():
-        return time_ms(lambda: up(x), iters=calls, warmup=1)
+        return time_ms(lambda: up(x, **kwargs), iters=calls, warmup=1)
 
 
 def visibility_flips(cfg, w2p, shift):
@@ -3802,6 +4018,10 @@ def main() -> None:
     print("deform_attn_2d_backward timed plans: " + json.dumps(bwd_plans))
     path_timing = path_shape_timing(card)
     headline_timing = headline_shape_timing(card)
+
+    # -- phase 5b: the upsampler's factorised route vs the dense one -------
+    print(json.dumps({"upsampler": {**upsampler_routes(card),
+                                    "card": card}}))
 
     # -- phase 6: full forward and eval ------------------------------------
     launches_eval, bwd_launches_eval, samples = full_forward_and_eval(

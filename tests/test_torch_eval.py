@@ -71,6 +71,36 @@ def test_dense_from_sparse_matches_jax():
         jocc.dense_from_sparse_np(sparse, 10, 16))
 
 
+def test_sparse_from_dense_matches_jax():
+    dense = np.random.default_rng(3).integers(0, 18, 400).astype(np.int32)
+    dense[:50] = 16
+    got = occupancy.sparse_from_dense_np(dense, 16)
+    np.testing.assert_array_equal(got, jocc.sparse_from_dense_np(dense, 16))
+    assert got.dtype == np.int64
+    np.testing.assert_array_equal(
+        occupancy.dense_from_sparse_np(got, 400, 16), dense)
+
+
+def test_dense_from_sparse_on_tensors_matches_jax():
+    """The padded scatter: negative indices (padding) and indices past
+    the grid are dropped."""
+    idx = np.array([0, 7, -1, 10, 9, -5, 3, 12], np.int32)
+    cls = np.array([3, 1, 5, 2, 4, 6, 0, 7], np.int32)
+    got = occupancy.dense_from_sparse(_t(idx), _t(cls), 10, 16)
+    ref = jocc.dense_from_sparse(jnp.asarray(idx), jnp.asarray(cls), 10, 16)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+
+
+def test_boxes_to_bottom_origin_matches_jax():
+    boxes = np.random.default_rng(4).normal(0.0, 2.0, (2, 5, 10)).astype(
+        np.float32)
+    np.testing.assert_allclose(
+        coders.boxes_to_bottom_origin(_t(boxes)).numpy(),
+        np.asarray(jcoders.boxes_to_bottom_origin(jnp.asarray(boxes))),
+        rtol=1e-6, atol=1e-6)
+
+
 def _box_inputs(seed, b=3, nq=20, ncls=5):
     rng = np.random.default_rng(seed)
     cls = rng.normal(-2.0, 1.5, (b, nq, ncls)).astype(np.float32)

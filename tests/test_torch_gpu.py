@@ -416,9 +416,10 @@ def test_fp32_upsampler_on_card_is_not_tf32(cuda, monkeypatch):
     up = {}
     for device in ("cpu", cuda):
         model = build_model(cfg, device)
+        # the default layout's call returns (even grid, last bias)
         hook = model.pts_bbox_head.up_sample.register_forward_hook(
             lambda mod, args, out, device=str(device): up.__setitem__(
-                device, out.cpu()))
+                device, out[0].cpu()))
         with torch.inference_mode():
             model(feats.to(device), w2p.to(device), shift.to(device))
         hook.remove()

@@ -103,8 +103,10 @@ def test_branches_match_jax(params):
 
 
 def test_upsampler_matches_jax(params):
-    """The JAX upsampler (the even-grid factorisation of the transposed
-    convolution) against the port's stack of ConvTranspose3d, NDHWC."""
+    """The model's upsampler, the port of JAX's even-grid factorisation
+    (``OccUpsampler``), against JAX's on the converted weights: the full
+    output, NDHWC, at the tiny config's width and bev_z = 2
+    (tests/test_torch_upsampler.py holds z = 3 and 4 and each method)."""
     model = port_model(params, TFULL)
     x = np.random.default_rng(2).standard_normal(
         (2, JCFG.bev_z, JCFG.bev_h, JCFG.bev_w, 64)).astype(np.float32)
@@ -112,8 +114,7 @@ def test_upsampler_matches_jax(params):
     ref = JaxOccUpsampler(64, num_stages=len(up)).apply(
         {"params": up}, jnp.asarray(x))
     with torch.inference_mode():
-        got = model.pts_bbox_head.up_sample(
-            torch.from_numpy(x).permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+        got = model.pts_bbox_head.up_sample(torch.from_numpy(x))
     assert tuple(got.shape) == ref.shape == (2, 2, 20, 20, 64)
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
                                atol=5e-5)

@@ -87,3 +87,10 @@ def decode_layouts(layout_preds: torch.Tensor,
     zeros = torch.zeros(boxes.shape[:-1], device=boxes.device)
     return DecodedBoxes(boxes, zeros, zeros.to(torch.int32),
                         _in_range(boxes, post_center_range))
+
+
+def boxes_to_bottom_origin(boxes: torch.Tensor) -> torch.Tensor:
+    """Gravity-centre -> bottom-origin z (head get_bboxes :1467): z less
+    half the box height (code dim 5), every other dim kept."""
+    cz = boxes[..., 2:3] - boxes[..., 5:6] * 0.5
+    return torch.cat([boxes[..., :2], cz, boxes[..., 3:]], dim=-1)

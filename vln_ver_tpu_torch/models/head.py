@@ -11,15 +11,17 @@ Forward modes, chosen by the config as in the reference
 * ``add_layout``: boxes, occupancy and layout branches;
 * default: boxes and occupancy.
 
-With ``refine_occ`` the voxel grid goes through ``up_sample``, a stack of
-transposed convolutions that each double (h, w) (reference names
-``up_sample.{i}``), and ``occ_layout`` picks how the upsampled volume
-reaches ``occ_proj``:
+With ``refine_occ`` the voxel grid goes through ``up_sample``
+(:class:`OccUpsampler`), the reference's stack of transposed convolutions
+that each double (h, w) (reference names ``up_sample.{i}``), computed by
+the JAX package's even-grid factorisation; ``occ_layout`` picks how the
+upsampled volume reaches ``occ_proj``:
 
 * ``'zhwc'`` (default): the (Z, H, W, C) layout.  Every odd row or column
   of a stride-2, dilation-2 transposed convolution is its bias alone, so
-  ``occ_proj`` and the occupancy MLP run on the even (y, x) cells plus one
-  bias cell and the logits are interleaved: the same function as
+  the full volume is never built: ``occ_proj`` and the occupancy MLP run
+  on the even (y, x) cells (``OccUpsampler.informative``) plus one bias
+  cell and the logits are interleaved: the same function as
   ``'zhwc_dense'`` with a quarter of the projection work;
 * ``'zhwc_dense'``: every cell projected;
 * ``'ref'``: the reference's raw ``.view`` reinterpretations (head:558,
@@ -34,6 +36,7 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from .config import VERConfig
@@ -122,6 +125,147 @@ def upsampler_stages(cfg: VERConfig) -> int:
     return stages
 
 
+def _zslab(x: torch.Tensor, kernel: torch.Tensor, pad_y, pad_x):
+    """One z-tap of the kernel over a slab of planes, no padding in z:
+    x (B, z, H, W, I), kernel (O, I, kh, kw) -> (B, z, H', W', O), a 2D
+    correlation of every plane, run channels-last as a 3D convolution of
+    depth 1: cuDNN's 2D form of the stage-1 5 x 5 correlation at a few
+    planes takes a weight-gradient algorithm about 5e-4 off a float64 run
+    in relative L2 in fp32 on an H100, the 3D form about 1e-6
+    (chip_smoke.py phase 5b)."""
+    if pad_y[0] != pad_y[1] or pad_x[0] != pad_x[1]:
+        x = F.pad(x, (0, 0, *pad_x, *pad_y))
+        pad = (0, 0, 0)
+    else:
+        pad = (0, pad_y[0], pad_x[0])
+    return F.conv3d(x.permute(0, 4, 1, 2, 3), kernel[:, :, None],
+                    padding=pad).permute(0, 2, 3, 4, 1)
+
+
+class _UpStage(ConvTranspose3d):
+    """One upsampler stage by the JAX package's even-grid factorisation
+    (vln_ver_tpu/models/head.py:94-207), on NDHWC tensors.
+
+    The parameters, their initialisation and the function are the
+    reference stage's (:class:`ConvTranspose3d`, torch's ``(in, out, 3, 5,
+    5)`` weight).  With stride 2 and dilation 2 every tap lands on an even
+    output (y, x), so the stage is a stride-1 correlation on the even grid
+    with the flipped kernel, and each odd row or column is the bias alone.
+    For stages >= 2 the input has that structure too, so ``phase_conv``
+    splits the correlation into four parity-phase convolutions over the
+    input's even grid plus a batch-free bias profile.  The correlation
+    kernel is derived from ``weight`` at every call, never cached: tensor
+    parallelism swaps the parameter's ``.data``.
+    """
+
+    def _kernel(self) -> torch.Tensor:
+        """The correlation kernel (out, in, kD, kH, kW): the transposed
+        convolution's weight flipped, in and out swapped (the inverse of
+        ``convert.voxelformer._conv_transpose_kernel``)."""
+        return self.weight.flip(2, 3, 4).transpose(0, 1)
+
+    def _conv(self, x: torch.Tensor, kernel: torch.Tensor, pad_y,
+              pad_x) -> torch.Tensor:
+        """x (B, Z, H, W, I), kernel (O, I, 3, kh, kw) -> (B, Z, H', W', O)
+        in ``dtype``.  In z the reference has kernel 3, dilation 2, pad 2:
+        out[z] = sum_k x[z + 2k - 2] * W[k].  Only the in-range plane pairs
+        run: the k=1 tap on every plane, k=0 feeds out[2:] from x[:-2], k=2
+        feeds out[:-2] from x[2:], each tap's output summed in ``dtype``."""
+        dt = self.dtype
+        x, kernel = x.to(dt), kernel.to(dt)
+        out = _zslab(x, kernel[:, :, 1], pad_y, pad_x)
+        z = x.shape[1]
+        if z <= 2:
+            return out
+        out[:, 2:] += _zslab(x[:, :z - 2], kernel[:, :, 0], pad_y, pad_x)
+        out[:, :z - 2] += _zslab(x[:, 2:], kernel[:, :, 2], pad_y, pad_x)
+        return out
+
+    def even_conv(self, x: torch.Tensor) -> torch.Tensor:
+        """Dense input (stage 1), (B, Z, H, W, C) -> this stage's even grid
+        without its bias, (B, Z, H, W, C)."""
+        return self._conv(x, self._kernel(), (2, 2), (2, 2))
+
+    def phase_conv(self, e: torch.Tensor,
+                   prev_bias: torch.Tensor) -> torch.Tensor:
+        """Input with the odd-is-bias structure (stages >= 2): ``e`` the
+        previous stage's even grid without its bias (B, Z, m_y, m_x, C),
+        ``prev_bias`` that bias.  Returns this stage's even grid without
+        its own bias, (B, Z, 2 m_y, 2 m_x, C)."""
+        b, z, m_y, m_x, _ = e.shape
+        k = self._kernel()
+        pads = ((0, (1, 1)), (1, (0, 1)))
+        # even[2t + p] = phase p's output t, interleaved in x, then in y
+        rows = [torch.stack([
+            self._conv(e, k[:, :, :, py::2, px::2], pad_y, pad_x)
+            for px, pad_x in pads], dim=4).reshape(b, z, m_y, 2 * m_x, -1)
+            for py, pad_y in pads]
+        even = torch.stack(rows, dim=3).reshape(b, z, 2 * m_y, 2 * m_x, -1)
+        # prev_bias at every in-range input cell, zero outside: a profile
+        # over (z, y, x) alone, the range mask correlated with
+        # sum_in W * prev_bias (built in fp32, then cast)
+        wb = torch.einsum("oizyx,i->ozyx", k.float(), prev_bias.float())
+        mask = e.new_ones((1, z, 2 * m_y, 2 * m_x, 1), dtype=self.dtype)
+        prof = self._conv(mask, wb[:, None], (2, 2), (2, 2))
+        return even + prof.to(even.dtype)
+
+    def interleave(self, even: torch.Tensor) -> torch.Tensor:
+        """The full output: ``even`` plus the bias at the even (y, x)
+        cells, the bias alone at every other cell."""
+        b, z, h, w, c = even.shape
+        bias = self.bias.to(even.dtype)
+        row = torch.stack([even + bias, bias.expand_as(even)], dim=4).reshape(
+            b, z, h, 2 * w, c)
+        return torch.stack([row, bias.expand_as(row)], dim=3).reshape(
+            b, z, 2 * h, 2 * w, c)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The stage alone on a dense NDHWC input."""
+        return self.interleave(self.even_conv(x))
+
+
+class OccUpsampler(nn.ModuleList):
+    """The refine_occ upsampler (head:254-258): stages ``0``, ``1``, ...
+    (the reference's ``up_sample.{i}``), each doubling (h, w) and keeping
+    z, on NDHWC tensors.  The stages pass the compact (even grid, bias)
+    form from one to the next, and only ``forward`` builds the full
+    lattice."""
+
+    def __init__(self, channels: int, num_stages: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__([_UpStage(channels, dtype)
+                          for _ in range(num_stages)])
+
+    def informative(self, x: torch.Tensor):
+        """(e, last_bias): the final even grid without its bias, (B, Z,
+        H 2^(n-1), W 2^(n-1), C), and that bias (C,).  The full output is
+        ``self[-1].interleave(e)``.  A module call, so hooks on the
+        upsampler see it."""
+        return self(x, informative=True)
+
+    def forward(self, x: torch.Tensor, informative: bool = False):
+        """x (B, Z, H, W, C) -> the full output (B, Z, H 2^n, W 2^n, C), or
+        with ``informative`` what :meth:`informative` returns."""
+        e = self[0].even_conv(x)
+        for i in range(1, len(self)):
+            e = self[i].phase_conv(e, self[i - 1].bias)
+        if informative:
+            return e, self[-1].bias
+        return self[-1].interleave(e)
+
+
+def dense_reference(up: OccUpsampler) -> nn.Sequential:
+    """The plain reference of ``up``: the reference's stack of dense
+    :class:`ConvTranspose3d` on NCDHW tensors, sharing ``up``'s
+    parameters.  The tests and chip_smoke.py hold the factorisation
+    against it; no model path runs it."""
+    ref = nn.Sequential(*[ConvTranspose3d(s.weight.shape[0], s.dtype)
+                          for s in up])
+    for r, s in zip(ref, up):
+        r.weight, r.bias = s.weight, s.bias
+    return ref
+
+
 class VoxelFormerOccupancyHead(nn.Module):
 
     def __init__(self, cfg: VERConfig):
@@ -157,9 +301,7 @@ class VoxelFormerOccupancyHead(nn.Module):
                                           cfg.occupancy_classes,
                                           cfg.num_occ_fcs, dt)
             if cfg.refine_occ:
-                self.up_sample = nn.Sequential(*[
-                    ConvTranspose3d(e, dt)
-                    for _ in range(upsampler_stages(cfg))])
+                self.up_sample = OccUpsampler(e, upsampler_stages(cfg), dt)
 
     # -- occupancy -----------------------------------------------------
     def _occ_logits_grid(self, x: torch.Tensor) -> torch.Tensor:
@@ -186,26 +328,24 @@ class VoxelFormerOccupancyHead(nn.Module):
             logits = self._occ_logits_grid(bev_embed.reshape(b, z, h, w, c))
         elif cfg.occ_layout == "ref":
             return self._occupancy_ref_layout(bev_embed)
+        elif cfg.occ_layout == "zhwc_dense":
+            logits = self._occ_logits_grid(
+                self.up_sample(bev_embed.reshape(b, z, h, w, c)))
         else:
-            # (B, Z, H, W, C) -> NCDHW for the convolutions
-            up = self.up_sample(
-                bev_embed.reshape(b, z, h, w, c).permute(0, 4, 1, 2, 3))
-            if cfg.occ_layout == "zhwc_dense":
-                logits = self._occ_logits_grid(up.permute(0, 2, 3, 4, 1))
-            else:
-                logits = self._bias_aware_logits(up)
+            logits = self._bias_aware_logits(
+                *self.up_sample.informative(bev_embed.reshape(b, z, h, w, c)))
         return logits.reshape(b, -1, logits.shape[-1])
 
-    def _bias_aware_logits(self, up: torch.Tensor) -> torch.Tensor:
-        """up (B, C, Z, H', W') upsampler output -> logits
-        (B, occ_z, H', W', n): the even (y, x) cells through occ_proj and
-        the MLP, every other cell the logits of the last stage's bias."""
+    def _bias_aware_logits(self, e: torch.Tensor,
+                           last_bias: torch.Tensor) -> torch.Tensor:
+        """The upsampler's even grid ``e`` (B, Z, H'/2, W'/2, C) and last
+        bias -> logits (B, occ_z, H', W', n): the even (y, x) cells through
+        occ_proj and the MLP, every other cell the logits of the bias."""
         cfg = self.cfg
-        even = up[:, :, :, ::2, ::2].permute(0, 2, 3, 4, 1)
-        even_logits = self._occ_logits_grid(even)
-        bias = self.up_sample[-1].bias.to(even.dtype).expand(
-            1, cfg.bev_z, 1, 1, cfg.embed_dims)
-        bias_logits = self._occ_logits_grid(bias)       # (1, oz, 1, 1, n)
+        bias = last_bias.to(e.dtype)
+        even_logits = self._occ_logits_grid(e + bias)
+        bias_logits = self._occ_logits_grid(
+            bias.expand(1, cfg.bev_z, 1, 1, cfg.embed_dims))
         b, oz, h2, w2, n = even_logits.shape
         full = bias_logits.expand(b, oz, 2 * h2, 2 * w2, n).clone()
         full[:, :, ::2, ::2] = even_logits
@@ -219,7 +359,8 @@ class VoxelFormerOccupancyHead(nn.Module):
         cfg = self.cfg
         b = bev_embed.shape[0]
         c, z = cfg.embed_dims, cfg.bev_z
-        u = self.up_sample(bev_embed.reshape(b, c, z, cfg.bev_h, cfg.bev_w))
+        t = bev_embed.reshape(b, c, z, cfg.bev_h, cfg.bev_w)
+        u = self.up_sample(t.permute(0, 2, 3, 4, 1)).permute(0, 4, 1, 2, 3)
         v = u.reshape(b, z, cfg.occ_xdim, cfg.occ_ydim, c)
         if cfg.bev_z == cfg.occ_zdim:
             occ = self.occ_proj(v).reshape(b, -1, cfg.occ_dims)

@@ -1,5 +1,5 @@
-"""Linear, LayerNorm and the upsampler's transposed convolution with the
-JAX package's dtype semantics.
+"""Linear, LayerNorm and the upsampler's reference transposed convolution
+with the JAX package's dtype semantics.
 
 A flax ``nn.Dense(dtype=...)`` keeps fp32 parameters and computes in its
 ``dtype``; :class:`Dense` does the same, so one module tree serves fp32
@@ -79,7 +79,12 @@ class ConvTranspose3d(nn.Module):
     NCDHW tensors.  ``weight`` is torch's ``(in, out, kD, kH, kW)``.
 
     With stride 2 and dilation 2 every kernel tap lands on an even output
-    (y, x): each odd row or column of the output is the bias alone."""
+    (y, x): each odd row or column of the output is the bias alone.
+
+    The plain reference of the upsampler: the model runs the same
+    parameters through the even-grid factorisation (``head.OccUpsampler``),
+    and only the tests and chip_smoke.py run this dense transposed
+    convolution (``head.dense_reference``), to hold that against it."""
 
     kernel = (3, 5, 5)
     stride = (1, 2, 2)

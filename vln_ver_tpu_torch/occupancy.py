@@ -28,6 +28,30 @@ def dense_from_sparse_np(sparse: np.ndarray, voxel_num: int,
     return dense
 
 
+def sparse_from_dense_np(dense: np.ndarray,
+                         empty_class: int = OCC_CLASSES) -> np.ndarray:
+    """(voxel_num,) dense classes -> (M, 2) int64 (index, class) pairs of
+    the non-empty voxels, in index order."""
+    idx = np.nonzero(dense != empty_class)[0]
+    return np.stack([idx, dense[idx].astype(np.int64)], axis=-1)
+
+
+def dense_from_sparse(indices: torch.Tensor, classes: torch.Tensor,
+                      voxel_num: int,
+                      empty_class: int = OCC_CLASSES) -> torch.Tensor:
+    """Padded sparse ground truth (M,) indices and (M,) classes ->
+    (voxel_num,) int32 dense classes on the indices' device, a scatter of
+    static shape (no host sync): rows whose index lies outside
+    [0, voxel_num), the negative padding among them, write a spare slot
+    that is cut off."""
+    dense = torch.full((voxel_num + 1,), empty_class, dtype=torch.int32,
+                       device=indices.device)
+    inside = (indices >= 0) & (indices < voxel_num)
+    dense[torch.where(inside, indices, voxel_num).long()] = classes.to(
+        torch.int32)
+    return dense[:voxel_num]
+
+
 def decode_occupancy_focal(logits: torch.Tensor,
                            threshold: float = 0.25) -> torch.Tensor:
     """Sigmoid (focal-loss) decode: a voxel takes its best class where
