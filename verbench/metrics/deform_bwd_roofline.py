@@ -1,0 +1,8 @@
+"""deform_bwd_roofline.<cell>: the lift's backward kernel against its
+least time, in % (traced run)."""
+
+from verbench.readers import deform_roofline
+
+
+def read(run):
+    return deform_roofline(run, backward=True)

@@ -1,0 +1,8 @@
+"""forward_ms.train: device ms per occurrence of the benchmark's span "forward"
+(CUDA events from its hooks, traced run)."""
+
+from verbench.readers import span
+
+
+def read(run):
+    return span(run, "forward")

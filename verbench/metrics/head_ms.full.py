@@ -1,0 +1,8 @@
+"""head_ms.full: device ms per occurrence of the benchmark's span "head"
+(CUDA events from its hooks, traced run)."""
+
+from verbench.readers import span
+
+
+def read(run):
+    return span(run, "head")

@@ -1,0 +1,8 @@
+"""loss_match_ms.train: device ms per occurrence of the benchmark's span "loss_match"
+(CUDA events from its hooks, traced run)."""
+
+from verbench.readers import span
+
+
+def read(run):
+    return span(run, "loss_match")

@@ -1,0 +1,8 @@
+"""optimizer_ms.train: device ms per occurrence of the benchmark's span "optimizer"
+(CUDA events from its hooks, traced run)."""
+
+from verbench.readers import span
+
+
+def read(run):
+    return span(run, "optimizer")
