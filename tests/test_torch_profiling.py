@@ -1,7 +1,7 @@
 """``vln_ver_tpu_torch/utils/profiling.py`` against
 ``vln_ver_tpu/utils/profiling.py``: ``force_completion`` on the same
 arrays, ``grad_report`` naming the same all-zero gradients (through the
-converter's names), and the port's ``timer`` and ``trace``."""
+converter's names), and the port's ``trace``."""
 
 import json
 
@@ -110,20 +110,18 @@ def test_grad_report_on_a_module_counts_absent_gradients():
     assert tprof.grad_report(model) == ["0.weight", "0.bias", "1.bias"]
 
 
-def test_timer_prints_the_running_mean(capsys):
-    for _ in range(2):
-        with tprof.timer("unit", result_tree=lambda: {"t": torch.ones(3)}):
-            pass
-    out = capsys.readouterr().out.strip().splitlines()
-    assert out[0].startswith("[timer] unit: ") and out[1].endswith("over 2)")
-
-
 def test_trace_writes_a_chrome_trace(tmp_path):
     with tprof.trace(str(tmp_path / "tr")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with tprof.span("test#matmul"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
     with open(tmp_path / "tr" / "trace.json") as f:
         events = json.load(f)["traceEvents"]
     assert any("mm" in e.get("name", "") for e in events)
+    assert any(e.get("name") == "test#matmul" for e in events)
+    # the recorder's spans of the block beside it
+    with open(tmp_path / "tr" / "spans.json") as f:
+        rec = json.load(f)
+    assert [s["name"] for s in rec["spans"]] == ["test#matmul"]
 
 
 def test_grad_report_with_no_present_gradient():

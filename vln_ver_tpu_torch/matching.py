@@ -21,6 +21,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .utils.profiling import count
+
 BIG_COST = 1e8
 # the auction's iterations between two checks for its end (host syncs)
 _CHECK_EVERY = 8
@@ -57,7 +59,7 @@ def _auction(cost: torch.Tensor, num_iters: int,
     rows_idx = torch.arange(nq, device=dev).expand(n, nq)
     drop = torch.full((n, 1), -1, dtype=torch.long, device=dev)
     neg_inf = torch.tensor(-float("inf"), device=dev)
-    it = 0
+    it = checks = 0
     while it < num_iters:
         for _ in range(min(_CHECK_EVERY, num_iters - it)):
             unassigned = row_of_col < 0                        # (N, ng)
@@ -84,8 +86,11 @@ def _auction(cost: torch.Tensor, num_iters: int,
                             torch.where(got_bid, rows_idx, -1))
             row_of_col = padded[:, :ng]
             it += 1
+        checks += 1
         if not bool((row_of_col < 0).any()):
             break
+    count("match#auction_iterations", it)
+    count("match#auction_syncs", checks)
     return row_of_col
 
 

@@ -13,6 +13,7 @@ import torch
 from torch import nn
 
 from ..runtime import fp32_precision
+from ..utils.profiling import span
 from .attention import (CamDeformableAttention, SpatialCrossAttention,
                         VoxelDeformableAttention3D, _PackedAttention)
 from .config import VERConfig
@@ -71,7 +72,7 @@ class VoxelFormer(nn.Module):
                 only_bev: bool = False) -> dict:
         # an fp32 model is true fp32 for every caller, not only the CLIs
         # that set the flags: the upsampler is a cuDNN convolution
-        with fp32_precision(self.cfg.dtype):
+        with span("ver#forward"), fp32_precision(self.cfg.dtype):
             return self.pts_bbox_head(features, world2pixel, origin_shift,
                                       prev_bev=prev_bev, tsa_shift=tsa_shift,
                                       only_bev=only_bev)

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.profiling import span
 from .config import VERConfig
 from .decoder import inverse_sigmoid
 from .layers import ConvTranspose3d, Dense, LayerNorm
@@ -317,6 +318,7 @@ class VoxelFormerOccupancyHead(nn.Module):
         occ = occ.reshape(b, h, w, cfg.occ_zdim, cfg.occ_dims)
         return self.occ_branches(occ).permute(0, 3, 1, 2, 4)
 
+    @span("ver#occupancy")
     def _occupancy_dispatch(self, bev_embed: torch.Tensor) -> torch.Tensor:
         """bev_embed (B, bev_num, C) -> occupancy logits (B, n_vox, n), the
         one owner of the refine_occ / occ_layout dispatch (full forward
@@ -329,11 +331,14 @@ class VoxelFormerOccupancyHead(nn.Module):
         elif cfg.occ_layout == "ref":
             return self._occupancy_ref_layout(bev_embed)
         elif cfg.occ_layout == "zhwc_dense":
-            logits = self._occ_logits_grid(
-                self.up_sample(bev_embed.reshape(b, z, h, w, c)))
+            with span("ver#upsampler"):
+                up = self.up_sample(bev_embed.reshape(b, z, h, w, c))
+            logits = self._occ_logits_grid(up)
         else:
-            logits = self._bias_aware_logits(
-                *self.up_sample.informative(bev_embed.reshape(b, z, h, w, c)))
+            with span("ver#upsampler"):
+                even = self.up_sample.informative(
+                    bev_embed.reshape(b, z, h, w, c))
+            logits = self._bias_aware_logits(*even)
         return logits.reshape(b, -1, logits.shape[-1])
 
     def _bias_aware_logits(self, e: torch.Tensor,
@@ -360,7 +365,9 @@ class VoxelFormerOccupancyHead(nn.Module):
         b = bev_embed.shape[0]
         c, z = cfg.embed_dims, cfg.bev_z
         t = bev_embed.reshape(b, c, z, cfg.bev_h, cfg.bev_w)
-        u = self.up_sample(t.permute(0, 2, 3, 4, 1)).permute(0, 4, 1, 2, 3)
+        with span("ver#upsampler"):
+            u = self.up_sample(t.permute(0, 2, 3, 4, 1))
+        u = u.permute(0, 4, 1, 2, 3)
         v = u.reshape(b, z, cfg.occ_xdim, cfg.occ_ydim, c)
         if cfg.bev_z == cfg.occ_zdim:
             occ = self.occ_proj(v).reshape(b, -1, cfg.occ_dims)
@@ -426,16 +433,18 @@ class VoxelFormerOccupancyHead(nn.Module):
             features, voxel_queries, self.query_embedding.weight,
             world2pixel, origin_shift, self.reg_branches, **temporal)
         outs.update(bev_embed=bev_embed, sca_overflow=overflow)
-        outs["all_cls_scores"] = torch.stack([
-            branch(hs[lid]) for lid, branch in enumerate(self.cls_branches)])
-        outs["all_bbox_preds"] = self._decode_coords(raw_preds, refs_before,
-                                                     cfg.pc_range)
-        if cfg.predicts_layout:
-            raw_layout = torch.stack([
+        with span("ver#branches"):
+            outs["all_cls_scores"] = torch.stack([
                 branch(hs[lid])
-                for lid, branch in enumerate(self.layout_branches)])
-            outs["all_layout_preds"] = self._decode_coords(
-                raw_layout, refs_before, cfg.layout_range)
+                for lid, branch in enumerate(self.cls_branches)])
+            outs["all_bbox_preds"] = self._decode_coords(
+                raw_preds, refs_before, cfg.pc_range)
+            if cfg.predicts_layout:
+                raw_layout = torch.stack([
+                    branch(hs[lid])
+                    for lid, branch in enumerate(self.layout_branches)])
+                outs["all_layout_preds"] = self._decode_coords(
+                    raw_layout, refs_before, cfg.layout_range)
         if not cfg.only_det:
             outs["occupancy_preds"] = self._occupancy_dispatch(bev_embed)
         return outs

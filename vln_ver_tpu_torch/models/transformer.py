@@ -19,6 +19,7 @@ import torch.distributed as dist
 from torch import nn
 
 from .. import geometry
+from ..utils.profiling import count, span
 from .config import VERConfig
 from .decoder import VoxelDetectionDecoder
 from .encoder import VoxelEncoder
@@ -69,6 +70,7 @@ class VoxelTransformer(nn.Module):
         self.cams_embeds.normal_(generator=generator)
         self.level_embeds.normal_(generator=generator)
 
+    @span("ver#encoder")
     def get_voxel_features(self, features: torch.Tensor,
                            bev_queries: torch.Tensor,
                            world2pixel: torch.Tensor,
@@ -119,7 +121,11 @@ class VoxelTransformer(nn.Module):
         cap = cfg.sca_query_capacity
         overflow = 0
         if cap and cap < mask.shape[2]:
-            visible = mask.any(dim=-1).sum(dim=-1).max()  # worst slot
+            per_slot = mask.any(dim=-1).sum(dim=-1)      # (B, cams)
+            count("lift#visible_queries",
+                  lambda: per_slot.clamp_max(cap).sum())
+            count("lift#query_slots", per_slot.numel() * cap)
+            visible = per_slot.max()                      # worst slot
             if self.views is not None:
                 visible = visible.clone()
                 dist.all_reduce(visible, op=dist.ReduceOp.MAX,
@@ -161,6 +167,8 @@ class VoxelTransformer(nn.Module):
             else:
                 dec_value = vol.amax(dim=1)
             grid = (1, cfg.bev_h, cfg.bev_w)
-        inter_states, refs_before, raw_preds = self.decoder(
-            query, dec_value, query_pos, init_ref, reg_branches, (grid,))
+        with span("ver#decoder"):
+            inter_states, refs_before, raw_preds = self.decoder(
+                query, dec_value, query_pos, init_ref, reg_branches,
+                (grid,))
         return voxel_embed, inter_states, raw_preds, refs_before, overflow

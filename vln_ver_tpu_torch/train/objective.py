@@ -38,6 +38,7 @@ from ..matching import (BIG_COST, build_detr_targets, hungarian_auction,
                         hungarian_host)
 from ..models.config import VERConfig
 from ..parallel.mesh import data_size, global_count
+from ..utils.profiling import span
 
 CODE_WEIGHTS = (1.0,) * 8 + (0.0, 0.0)
 
@@ -64,9 +65,11 @@ def _match(cls_scores, bbox_preds, gt_norm, gt_labels, gt_valid,
     # (hungarian_assigner_3d.py:125)
     cost = torch.where(valid, cost, pad[:, None, None]).detach()
     if matcher == "host":
-        return hungarian_host(cost)
+        with span("train#match"):
+            return hungarian_host(cost)
     if matcher == "auction":
-        return hungarian_auction(cost)
+        with span("train#match"):
+            return hungarian_auction(cost)
     raise ValueError(f"unknown matcher {matcher!r}: 'auction' or 'host'")
 
 

@@ -13,6 +13,7 @@ import torch.distributed as dist
 from ..models.config import VERConfig
 from ..parallel.mesh import allreduce_grads, data_parallel, mean_over_data
 from ..runtime import fp32_precision
+from ..utils.profiling import span
 from .objective import compute_losses
 from .state import TrainConfig, TrainState
 
@@ -50,6 +51,7 @@ def make_train_step(cfg: VERConfig, tc: TrainConfig,
     its full parameters gathered for the forward and the backward and is
     updated on its slices (``TrainState.apply_gradients``)."""
 
+    @span("train#step")
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor],
                    seed: int) -> Dict[str, torch.Tensor]:
         model = state.model
@@ -61,15 +63,20 @@ def make_train_step(cfg: VERConfig, tc: TrainConfig,
         with torch.random.fork_rng(devices=devices), \
                 fp32_precision(cfg.dtype), data_parallel(mesh):
             torch.manual_seed(step_seed(seed, state.step))
-            outs = model(batch["features"], batch["world2pixel"],
-                         batch["origin_shift"])
-            loss_dict = compute_losses(cfg, outs, batch, matcher=tc.matcher)
-            total = sum(loss_dict.values())
-            state.optimizer.zero_grad(set_to_none=True)
-            total.backward()
+            with span("train#forward"):
+                outs = model(batch["features"], batch["world2pixel"],
+                             batch["origin_shift"])
+            with span("train#losses"):
+                loss_dict = compute_losses(cfg, outs, batch,
+                                           matcher=tc.matcher)
+                total = sum(loss_dict.values())
+            with span("train#backward"):
+                state.optimizer.zero_grad(set_to_none=True)
+                total.backward()
         if mesh is not None:
             allreduce_grads(mesh, model.parameters())
-        grad_norm = state.apply_gradients()
+        with span("train#optimizer"):
+            grad_norm = state.apply_gradients()
         keys = list(loss_dict)
         losses = mean_over_data(mesh, torch.stack(
             [loss_dict[k].detach() for k in keys] + [total.detach()]))

@@ -30,6 +30,8 @@ from typing import Callable, Optional, Sequence
 import numpy as np
 import torch
 
+from .utils.profiling import span
+
 _CASTS = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
@@ -89,6 +91,7 @@ def volumes_from_bev(bev: np.ndarray, ver) -> np.ndarray:
     return np.ascontiguousarray(vol, dtype=np.float32)
 
 
+@span("ver_writer#dump", device=False)
 def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
                  batch_size: int = 1, gzip_level: int = 4,
                  serial: bool = False,
@@ -152,10 +155,11 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
         if not writes:
             return
         for i, token in enumerate(tokens):
-            if token in outf:
-                del outf[token]
-            outf.create_dataset(token, data=vol[i], compression="gzip",
-                                compression_opts=gzip_level)
+            with span("ver_writer#write", device=False):
+                if token in outf:
+                    del outf[token]
+                outf.create_dataset(token, data=vol[i], compression="gzip",
+                                    compression_opts=gzip_level)
             written += 1
 
     def open_out():
@@ -180,6 +184,7 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
                 except queue_mod.Empty:
                     return
 
+    @span("ver_writer#prep", device=False)
     def prep(batch):
         """Cast or quantise and upload one batch (on the transfer thread
         when pipelined)."""
@@ -196,6 +201,7 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
                 torch.from_numpy(np.asarray(batch["origin_shift"])).to(device))
         return args, list(batch["token"])
 
+    @span("ver_writer#dispatch")
     def dispatch(args, tokens):
         """Queue the lift and the copy of its result to the host; returns
         (host tensor, event or None, tokens, overflow)."""
@@ -213,6 +219,7 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
             host, done = bev, None
         return host, done, tokens, ovf
 
+    @span("ver_writer#fetch", device=False)
     def fetch_vol(pending):
         host, done, tokens, _ = pending
         if done is not None:
@@ -223,7 +230,12 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
         tokens, vol = fetch_vol(pending)
         if werr:
             raise RuntimeError("HDF5 writer failed") from werr[0]
-        write_q.put((tokens, vol))
+        with span("ver_writer#enqueue", device=False):
+            write_q.put((tokens, vol))
+
+    @span("ver_writer#next", device=False)
+    def next_batch(it):
+        return next(it, None)
 
     wt = None
     if not serial:
@@ -241,18 +253,19 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
         staged = None  # future of the next prepared batch
         while True:
             if serial:
-                batch = next(it, None)
+                batch = next_batch(it)
                 if batch is None:
                     break
                 args, tokens = prep(batch)
             else:
                 if staged is None:
-                    batch = next(it, None)
+                    batch = next_batch(it)
                     if batch is None:
                         break
                     staged = transfer.submit(prep, batch)
-                args, tokens = staged.result()
-                nxt = next(it, None)
+                with span("ver_writer#wait_prep", device=False):
+                    args, tokens = staged.result()
+                nxt = next_batch(it)
                 staged = (transfer.submit(prep, nxt)
                           if nxt is not None else None)
             item = dispatch(args, tokens)
@@ -268,8 +281,9 @@ def dump_volumes(bev_only: Callable, dataset, ver, savename: str,
         if not serial:
             if pending is not None:
                 fetch_and_enqueue(pending)
-            write_q.put(None)
-            wt.join()
+            with span("ver_writer#drain", device=False):
+                write_q.put(None)
+                wt.join()
             if werr:
                 raise RuntimeError("HDF5 writer failed") from werr[0]
     finally:
