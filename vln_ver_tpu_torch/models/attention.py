@@ -276,6 +276,24 @@ class VoxelDeformableAttention3D(nn.Module):
             embed_dims, num_heads * num_levels * num_points)
         self.output_proj = Dense(embed_dims, embed_dims, dtype)
         self.dropout = Dropout(dropout_rate)
+        self._normalizers = {}
+
+    def normalizer(self, spatial_shapes: Sequence[Tuple[int, int, int]],
+                   device) -> torch.Tensor:
+        """The offset normaliser, (w, h, d) of each level
+        (voxel_decoder.py:313-318), (levels, 3) in fp32: built on the
+        device once per grid, since a host-to-device copy on every call
+        cannot be captured in a CUDA graph; outside inference mode, so
+        that a training forward may save it for the backward."""
+        key = (tuple(spatial_shapes), device)
+        norm = self._normalizers.get(key)
+        if norm is None:
+            with torch.inference_mode(False):
+                norm = torch.tensor([[w, h, d] for (d, h, w)
+                                     in spatial_shapes],
+                                    dtype=torch.float32, device=device)
+            self._normalizers[key] = norm
+        return norm
 
     @torch.no_grad()
     def init_sampling(self) -> None:
@@ -309,9 +327,7 @@ class VoxelDeformableAttention3D(nn.Module):
             bsz, nq, heads, levels * points).softmax(dim=-1)
         attn = attn.reshape(bsz, nq, heads, levels, points)
 
-        # the offset normaliser is (w, h, d) (voxel_decoder.py:313-318)
-        normalizer = torch.tensor([[w, h, d] for (d, h, w) in spatial_shapes],
-                                  dtype=torch.float32, device=query.device)
+        normalizer = self.normalizer(spatial_shapes, query.device)
         locations = (reference_points[:, :, None, :, None, :].float()
                      + offsets / normalizer[None, None, None, :, None, :])
 

@@ -39,6 +39,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..utils.cuda_graph import GraphCache
 from ..utils.profiling import span
 from .config import VERConfig
 from .decoder import inverse_sigmoid
@@ -292,6 +293,9 @@ class VoxelFormerOccupancyHead(nn.Module):
                 self.layout_branches = nn.ModuleList([
                     RegBranch(e, cfg.code_size, cfg.num_reg_fcs, dt)
                     for _ in range(cfg.decoder_layers)])
+            # inference forwards on the card replay the branches from CUDA
+            # graphs, as the decoder
+            self.branch_graphs = GraphCache()
         if not cfg.only_det:
             if cfg.bev_z == cfg.occ_zdim:
                 self.occ_proj = Dense(e, cfg.occ_dims, dt)
@@ -396,6 +400,22 @@ class VoxelFormerOccupancyHead(nn.Module):
         return torch.cat([cx, cy, raw_preds[..., 2:4], cz,
                           raw_preds[..., 5:]], dim=-1)
 
+    def _branches(self, hs, raw_preds, refs_before) -> dict:
+        """The class scores and decoded boxes (and layouts) of every
+        decoder layer."""
+        cfg = self.cfg
+        outs = {"all_cls_scores": torch.stack([
+            branch(hs[lid]) for lid, branch in enumerate(self.cls_branches)]),
+            "all_bbox_preds": self._decode_coords(raw_preds, refs_before,
+                                                  cfg.pc_range)}
+        if cfg.predicts_layout:
+            raw_layout = torch.stack([
+                branch(hs[lid])
+                for lid, branch in enumerate(self.layout_branches)])
+            outs["all_layout_preds"] = self._decode_coords(
+                raw_layout, refs_before, cfg.layout_range)
+        return outs
+
     # ------------------------------------------------------------------
     def forward(self, features: torch.Tensor, world2pixel: torch.Tensor,
                 origin_shift: torch.Tensor, prev_bev=None, tsa_shift=None,
@@ -434,17 +454,11 @@ class VoxelFormerOccupancyHead(nn.Module):
             world2pixel, origin_shift, self.reg_branches, **temporal)
         outs.update(bev_embed=bev_embed, sca_overflow=overflow)
         with span("ver#branches"):
-            outs["all_cls_scores"] = torch.stack([
-                branch(hs[lid])
-                for lid, branch in enumerate(self.cls_branches)])
-            outs["all_bbox_preds"] = self._decode_coords(
-                raw_preds, refs_before, cfg.pc_range)
+            branches = [self.cls_branches]
             if cfg.predicts_layout:
-                raw_layout = torch.stack([
-                    branch(hs[lid])
-                    for lid, branch in enumerate(self.layout_branches)])
-                outs["all_layout_preds"] = self._decode_coords(
-                    raw_layout, refs_before, cfg.layout_range)
+                branches.append(self.layout_branches)
+            outs.update(self.branch_graphs(
+                self._branches, (hs, raw_preds, refs_before), branches))
         if not cfg.only_det:
             outs["occupancy_preds"] = self._occupancy_dispatch(bev_embed)
         return outs

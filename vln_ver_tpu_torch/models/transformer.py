@@ -19,6 +19,8 @@ import torch.distributed as dist
 from torch import nn
 
 from .. import geometry
+from ..ops.deform_cuda import KERNEL
+from ..utils.cuda_graph import GraphCache
 from ..utils.profiling import count, span
 from .config import VERConfig
 from .decoder import VoxelDetectionDecoder
@@ -63,6 +65,10 @@ class VoxelTransformer(nn.Module):
                     nn.ReLU(), Dense(mid, e, cfg.dtype),
                     LayerNorm(e, cfg.dtype), nn.ReLU())
             self.decoder = VoxelDetectionDecoder(cfg)
+            # inference forwards on the card replay the decoder (with its
+            # queries and the head's reg branches) from CUDA graphs
+            self.decoder_graphs = GraphCache(kernels=(KERNEL,),
+                                             name="decoder")
             self.reference_points = Dense(cfg.embed_dims, 3)
 
     @torch.no_grad()
@@ -139,9 +145,11 @@ class VoxelTransformer(nn.Module):
 
     def forward(self, features: torch.Tensor, bev_queries: torch.Tensor,
                 object_query_embed: torch.Tensor, world2pixel: torch.Tensor,
-                origin_shift: torch.Tensor, reg_branches, prev_bev=None,
-                bev_pos=None, tsa_shift=None):
-        """Full encoder + decoder pass.
+                origin_shift: torch.Tensor, reg_branches: nn.ModuleList,
+                prev_bev=None, bev_pos=None, tsa_shift=None):
+        """Full encoder + decoder pass.  Under ``no_grad`` or
+        ``inference_mode`` on the card, with the modules in ``eval()``, the
+        decoder replays from a CUDA graph (``utils.cuda_graph``).
 
         Returns (voxel_embed (B, bev_num, C), inter_states (L, B, nq, C),
         raw_reg_preds (L, B, nq, code_size), refs_before (L, B, nq, 3),
@@ -151,10 +159,6 @@ class VoxelTransformer(nn.Module):
             features, bev_queries, world2pixel, origin_shift,
             prev_bev=prev_bev, bev_pos=bev_pos, tsa_shift=tsa_shift)
         b = features.shape[0]
-        query_pos, query = object_query_embed.chunk(2, dim=-1)
-        query_pos = query_pos[None].expand(b, -1, -1).to(cfg.dtype)
-        query = query[None].expand(b, -1, -1).to(cfg.dtype)
-        init_ref = self.reference_points(query_pos.float()).sigmoid()
         dec_value, grid = voxel_embed, (cfg.bev_z, cfg.bev_h, cfg.bev_w)
         if cfg.decoder_on_bev:
             # collapse z: the decoder attends a (1, H, W) grid
@@ -167,8 +171,20 @@ class VoxelTransformer(nn.Module):
             else:
                 dec_value = vol.amax(dim=1)
             grid = (1, cfg.bev_h, cfg.bev_w)
+
+        def decode(query_embed, value):
+            # the queries are views of the (nq, 2C) table expanded over the
+            # batch, so a graph sees them as the eager call does
+            query_pos, query = query_embed.chunk(2, dim=-1)
+            query_pos = query_pos[None].expand(b, -1, -1).to(cfg.dtype)
+            query = query[None].expand(b, -1, -1).to(cfg.dtype)
+            init_ref = self.reference_points(query_pos.float()).sigmoid()
+            return self.decoder(query, value, query_pos, init_ref,
+                                reg_branches, (grid,))
+
         with span("ver#decoder"):
-            inter_states, refs_before, raw_preds = self.decoder(
-                query, dec_value, query_pos, init_ref, reg_branches,
-                (grid,))
+            inter_states, refs_before, raw_preds = self.decoder_graphs(
+                decode, (object_query_embed, dec_value),
+                (self.decoder, reg_branches, self.reference_points),
+                static=grid)
         return voxel_embed, inter_states, raw_preds, refs_before, overflow

@@ -403,6 +403,22 @@ class _CudaKernel:
         self.last_plan = plan
         self.last_nq = nq
 
+    def mark(self) -> tuple:
+        """The launch count and the latest launch's plan and query count."""
+        return self.launches, self.last_plan, self.last_nq
+
+    def restore(self, mark: tuple) -> None:
+        """Back to ``mark``: a CUDA graph's capture launched nothing."""
+        self.launches, self.last_plan, self.last_nq = mark
+
+    def replayed(self, before: tuple, after: tuple) -> None:
+        """A CUDA graph whose capture ran from the mark ``before`` to the
+        mark ``after`` replayed: count its launches again, and keep its
+        last launch as the latest."""
+        if after[0] != before[0]:
+            self.launches += after[0] - before[0]
+            self.last_plan, self.last_nq = after[1], after[2]
+
 
 class DeformAttn2dKernel(_CudaKernel):
     """The forward kernel (``csrc/deform_attn_2d.cu``), with its plans
