@@ -6,7 +6,9 @@ traffic mix (``verbench/traffic/<traffic>.json``, whose ``driver`` names
 ``verbench/limits/<workload>.json``.  Every metric has a reader,
 ``verbench/metrics/<metric>.py``, with ``read(run) -> float | None``; a
 metric without a file of its own is read by the one its cells share,
-``verbench/metrics/<metric up to the first dot>.py``.
+``verbench/metrics/<metric up to the first dot>.py``.  The configuration
+names its architecture module, ``verbench/reference/<arch>.py``
+(:func:`arch_of`).
 
 The run: set-up (weights and inputs from the seed, the program built and
 warmed up at the cell's shapes), the measured window (traced with
@@ -26,6 +28,10 @@ from typing import Dict, List, Optional
 
 HERE = Path(__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "vln_ver_tpu")
+# readers that hold a kernel against flops.deform_least_s, which takes the
+# VoxelFormer's lift shapes: only cells that reference/arch.py reads may
+# list them
+VOXELFORMER_READERS = ("deform_fwd_roofline", "deform_bwd_roofline")
 
 
 def _load(path: Path, module_name: str):
@@ -56,7 +62,16 @@ class Cell:
         entry = _by_name(spec["configs"], self.workload["config"],
                          "configuration")
         self.config = json.loads((self.root / entry["file"]).read_text())
-        self.arch = Arch(self.config)
+        self.arch = arch_of(self.config)
+        if type(self.arch) is not Arch:
+            theirs = [m["name"] for m in spec["per_layer"]
+                      if workload in m.get("workloads", [workload])
+                      and reader_path(m["name"]).stem in VOXELFORMER_READERS]
+            if theirs:
+                raise ValueError(
+                    f"{theirs} read the VoxelFormer's shapes; a cell of "
+                    f"{entry['file']} (arch {self.config['arch']!r}) brings "
+                    "rooflines with readers of its own")
         self.traffic = json.loads(
             (HERE / "traffic" / f"{self.workload['traffic']}.json")
             .read_text())
@@ -79,6 +94,44 @@ class Cell:
         path = reader_path(metric)
         return _load(path, "verbench_metric_"
                      + path.stem.replace(".", "_")).read
+
+
+def arch_of(config: Dict):
+    """The architecture a configuration file describes: ``Arch(config)``
+    of ``verbench/reference/<config["arch"]>.py``, of ``reference/arch.py``
+    (the VoxelFormer) where the file has no ``"arch"`` key.
+
+    The contract: an architecture module's ``Arch(spec)`` takes the file's
+    object and exposes ``dtype``, a key of ``flops.PEAK_FLOP_PER_S``, which
+    is all that the shared code reads of it (``readers.mfu``,
+    ``calibrate``); ``driver.Driver`` hands it to the cell's own driver as
+    ``self.arch``.  Everything else an architecture needs lives in files of
+    its own: its reference, weights, traffic generator, driver, program
+    builder, FLOP and byte formulas and metric readers.  ``program.py``,
+    ``traffic.py`` and the ``deform_*_roofline`` readers are the
+    VoxelFormer's.
+    """
+    import importlib
+
+    from .flops import PEAK_FLOP_PER_S
+    name = config.get("arch", "arch")
+    if not isinstance(name, str) or not name.isidentifier():
+        raise ValueError(f"'arch' {name!r} is not the name of a module")
+    module = f"{__package__}.reference.{name}"
+    try:
+        mod = importlib.import_module(module)
+    except ModuleNotFoundError as e:
+        if e.name != module:
+            raise
+        raise FileNotFoundError(
+            f"{HERE / 'reference' / name}.py is missing: the "
+            f"configuration's 'arch' {name!r} names no module of "
+            "verbench/reference/") from None
+    arch = mod.Arch(config)
+    if arch.dtype not in PEAK_FLOP_PER_S:
+        raise ValueError(f"{module}.Arch's dtype {arch.dtype!r} is not one "
+                         f"of {sorted(PEAK_FLOP_PER_S)}")
+    return arch
 
 
 def reader_path(metric: str) -> Path:

@@ -6,7 +6,8 @@ import re
 
 import pytest
 
-from verbench.bench import HERE, reader_path
+from verbench.bench import HERE, Cell, arch_of, reader_path
+from verbench.flops import PEAK_FLOP_PER_S
 
 from . import tiny
 
@@ -64,3 +65,19 @@ def test_cell_files_and_metrics(w):
     assert per and all(m["moves"] in e2e for m in per)
     config = next(c for c in SPEC["configs"] if c["name"] == w["config"])
     assert (tiny.ROOT / config["file"]).is_file()
+
+
+@pytest.mark.parametrize("c", SPEC["configs"],
+                         ids=[c["name"] for c in SPEC["configs"]])
+def test_config_architecture_resolves(c):
+    config = json.loads((tiny.ROOT / c["file"]).read_text())
+    assert arch_of(config).dtype in PEAK_FLOP_PER_S
+
+
+@pytest.mark.parametrize("w", SPEC["workloads"],
+                         ids=[w["name"] for w in SPEC["workloads"]])
+def test_voxelformer_rooflines_only_in_its_cells(w):
+    """The shared ``deform_*_roofline`` readers take the VoxelFormer's
+    shapes: building a cell refuses them where its configuration is not
+    ``reference/arch.py``'s."""
+    assert Cell(tiny.ROOT, w["name"]).arch

@@ -45,7 +45,19 @@ def test_train_step_matches_port():
     # fp32 on both sides, the same dropout draws and matches
     assert out["checks"]["loss"]["value"] < 1e-5
     assert out["checks"]["first_grad"]["value"] < 1e-4
+    assert out["checks"]["first_grad_q25"]["value"] < 1e-4
     assert out["checks"]["change"]["value"] < 1e-4
+
+
+def test_first_grad_quartile_reads_broad_gaps_not_local_ones():
+    from verbench.drivers.train_step import leaf_quartile
+    want = {f"leaf{i}": torch.linspace(1.0, 2.0, 10) for i in range(8)}
+    # a kink moves the leaves upstream of one location, not the rest
+    local = {k: v * (1.05 if i < 5 else 1.0)
+             for i, (k, v) in enumerate(want.items())}
+    broad = {k: v * 1.001 for k, v in want.items()}
+    assert leaf_quartile(local, want, 0.0) == 0.0
+    assert abs(leaf_quartile(broad, want, 0.0) - 1e-3) < 1e-6
 
 
 def test_dump_layout_matches_reference():

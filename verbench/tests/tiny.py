@@ -7,7 +7,6 @@ import time
 from pathlib import Path
 
 from verbench import bench
-from verbench.reference.arch import Arch
 
 ROOT = Path(__file__).resolve().parents[2]
 TINY = dict(bev_z=2, bev_h=4, bev_w=4, occupancy_size=[1.5, 1.5, 0.4375],
@@ -24,7 +23,7 @@ def cell(workload: str, **model) -> bench.Cell:
     cap = 24 if c.arch.sca_query_capacity else 0
     c.config["model"].update(TINY, num_cams=cams, sca_query_capacity=cap)
     c.config["model"].update(model)
-    c.arch = Arch(c.config)
+    c.arch = bench.arch_of(c.config)
     for k, v in TRAFFIC.items():
         if k in c.traffic or k == "pool":
             c.traffic[k] = v
