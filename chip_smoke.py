@@ -223,7 +223,12 @@ Phases (any failure exits nonzero, nothing is caught):
      launches a frame, against the CPU, the chains timed as phase 11's
      rates; one backward of a scalar of the last frame's outputs at batch
      1 (history frames without gradients, 12 backward launches), card
-     gradients against the CPU's;
+     gradients against the CPU's; then the gather kernel
+     (csrc/msda_gather.cu) at BEVFormer-base's three launch shapes
+     (GATHER_SHAPES: the 4-level lift over 6 cameras, the TSA and the
+     decoder over the 200 x 200 BEV; fp32, and bf16 at the lift's), one
+     launch each and none of the staged kernel, against the plain version,
+     timed beside its bound and the plain version's time;
   13. the 36-view headline as ``python -m vln_ver_tpu_torch.bench`` measures
      it (VERConfig(num_cams=36, dtype=bfloat16), seed-0 weights, the
      example inputs of numpy seed 0): the capacity derived from the rig
@@ -309,6 +314,19 @@ TEMPORAL_FRAMES, TEMPORAL_BATCH, TEMPORAL_CPU_ROWS = 3, 4, 2
 # phase 12: BEVFormer-2D over synthetic nuScenes scenes of 3 frames, a yaw
 # change of this many degrees a frame (so rotate_prev_bev turns the grid)
 BEV2D_FRAMES, BEV2D_BATCHES, BEV2D_YAW_DEG = 3, (1, 4), 3.0
+# phase 12: the gather kernel (csrc/msda_gather.cu) at BEVFormer-base's
+# launches, (name, bs, level shapes, d, nq, P): the 4-level lift over 6
+# cameras at the rig's capacity, the TSA over the 200 x 200 BEV's two
+# queue slots, the decoder's 900 queries over it
+GATHER_SHAPES = [
+    ("BEVFormer-base SCA", 6, ((116, 200), (58, 100), (29, 50), (15, 25)),
+     32, 12608, 8),
+    ("BEVFormer-base TSA", 2, ((200, 200),), 32, 40000, 4),
+    ("BEVFormer-base decoder", 1, ((200, 200),), 32, 900, 4),
+]
+# H100 SXM fp32 peak outside the tensor cores and HBM bandwidth (NVIDIA
+# data sheet)
+FP32_FLOP_PER_S, HBM_BYTES_PER_S = 67e12, 3.35e12
 # phases 11 and 12 time each rate over back-to-back calls of the warm
 # path, inputs already on the card, for at least this many seconds
 RATE_WINDOW_S = 1.0
@@ -3276,6 +3294,79 @@ def temporal_path(ver, samples, card):
     return launches, numbers
 
 
+def gather_bound_ms(bs, shapes, heads, d, nq, P, elt):
+    """Least time of one gather launch: the value rows its taps need (at
+    most the whole value), fp32 locations and weights and the output, each
+    moved once, or 4 taps x d multiply-adds a sample at the fp32 peak,
+    whichever is longer."""
+    rows = sum(h * w for h, w in shapes)
+    samples = bs * nq * heads * len(shapes) * P
+    value = min(bs * rows * heads, 4 * samples) * d * elt
+    moved = value + samples * 12 + bs * nq * heads * d * elt
+    return 1e3 * max(moved / HBM_BYTES_PER_S,
+                     8.0 * d * samples / FP32_FLOP_PER_S)
+
+
+def gather_shapes(card):
+    """Phase 12's kernel part: the gather kernel against the plain version
+    at BEVFormer-base's three launch shapes (fp32, and bf16 at the lift's),
+    each timed with its bound and the plain version's time; every launch
+    goes to the gather kernel, none to the staged one."""
+    import torch
+
+    from vln_ver_tpu_torch.ops.deform_attn import ms_deform_attn_2d
+    from vln_ver_tpu_torch.ops.deform_cuda import (GATHER, KERNEL,
+                                                   ms_deform_attn_2d_fused)
+    dev = torch.device("cuda")
+    numbers = {}
+    cases = [(*c, torch.float32) for c in GATHER_SHAPES]
+    cases.append((*GATHER_SHAPES[0], torch.bfloat16))
+    for name, bs, shapes, d, nq, P, dtype in cases:
+        rng = np.random.default_rng(7)
+        rows, L, heads = sum(h * w for h, w in shapes), len(shapes), 8
+        value = torch.from_numpy(rng.standard_normal(
+            (bs, rows, heads, d)).astype(np.float32)).to(dev, dtype)
+        loc = torch.from_numpy(rng.uniform(
+            -0.1, 1.1, (bs, nq, heads, L, P, 2)).astype(np.float32)).to(dev)
+        wgt = torch.from_numpy(rng.standard_normal(
+            (bs, nq, heads, L * P)).astype(np.float32)).to(dev).softmax(
+                -1).reshape(bs, nq, heads, L, P).contiguous()
+        before = (GATHER.launches, KERNEL.launches)
+        with torch.inference_mode():
+            got = ms_deform_attn_2d_fused(value, shapes, loc, wgt)
+            torch.cuda.synchronize()
+            want = ms_deform_attn_2d(value.float(), shapes, loc, wgt)
+        if (GATHER.launches - before[0], KERNEL.launches - before[1]) \
+                != (1, 0):
+            fail(f"{name}: the call did not take the gather kernel alone")
+        tol = 1e-5 if dtype == torch.float32 else 2e-2
+        err, ok = close(got.float(), want.float(), tol, tol)
+        tag = f"{name} {str(dtype).split('.')[-1]}"
+        if not ok or not bool(torch.isfinite(got).all()):
+            fail(f"gather kernel {tag}: max_abs_err={err:.3e} against the "
+                 "plain version")
+        del want
+        with torch.inference_mode():
+            ms = time_ms(lambda: ms_deform_attn_2d_fused(value, shapes, loc,
+                                                         wgt), iters=50,
+                         warmup=5)
+            plain = time_ms(lambda: ms_deform_attn_2d(value, shapes, loc,
+                                                      wgt), iters=3,
+                            warmup=1)
+        bound = gather_bound_ms(bs, shapes, heads, d, nq, P,
+                                value.element_size())
+        numbers[tag] = {"ms": ms, "bound_ms": bound,
+                        "share": 100.0 * bound / ms, "plain_ms": plain,
+                        "max_abs_err": err}
+        print(f"gather kernel {tag} (bs={bs}, levels={list(shapes)}, "
+              f"d={d}, nq={nq}, P={P}): {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({100.0 * bound / ms:.1f} %), plain version {plain:.4f} ms, "
+              f"max_abs_err={err:.3e} against it [{card}]")
+        del value, loc, wgt, got
+        torch.cuda.empty_cache()
+    return numbers
+
+
 def bev2d_path(card):
     """Phase 12: BEVFormer-2D at BEV2DConfig's defaults over synthetic
     nuScenes scenes, read through NuScenesAdapter from an info pkl under
@@ -4063,6 +4154,7 @@ def main() -> None:
     # -- phase 12: BEVFormer-2D over synthetic nuScenes scenes -------------
     bev2d_launches, bev2d_numbers = bev2d_path(card)
     print(json.dumps({"bev2d": {**bev2d_numbers, "card": card}}))
+    print(json.dumps({"gather": {**gather_shapes(card), "card": card}}))
 
     # -- phase 13: the 36-view headline, determinism, bench_train ----------
     headline_launches, headline_numbers = headline_path(card)

@@ -367,11 +367,17 @@ def test_nuscenes_reader_matches_jax(tmp_path):
 
 
 def test_multi_level_config_is_refused_on_cuda_tensors(monkeypatch):
-    """The CUDA kernel samples one level: a BEV-2D config with two levels
-    raises before any launch (a CPU tensor posing as a CUDA one)."""
+    """Several levels take the gather kernel, which has no backward: a
+    BEV-2D config with two levels raises before any launch where the
+    forward needs a gradient (a CPU tensor posing as a CUDA one), and runs
+    without one."""
     cfg = dataclasses.replace(bev2d.BEV2DConfig(**KW), num_levels=2)
-    model = bev2d.BEVFormer2D(cfg)
-    feats = torch.zeros((1, 2, 4, 4, 32))
+    model = bev2d.build_bev2d(cfg, "cpu", seed=1).train()
+    assert model.gathered() == ("lift",)
+    feats = [torch.zeros((1, 2, 4, 4, 32))] * 2
     monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
-    with pytest.raises(ValueError, match="one level"):
+    with pytest.raises(ValueError, match="no backward"):
         model(feats, torch.zeros((1, 2, 4, 4)), torch.zeros((1, 3)))
+    with torch.no_grad():
+        out = model(feats, torch.zeros((1, 2, 4, 4)), torch.zeros((1, 3)))
+    assert out["bev_embed"].shape == (1, cfg.bev_num, cfg.embed_dims)

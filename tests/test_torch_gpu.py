@@ -19,7 +19,7 @@ import torch
 from vln_ver_tpu_torch.models import VERConfig, build_model
 from vln_ver_tpu_torch.geometry import make_pinhole_world2pixel
 from vln_ver_tpu_torch.ops.deform_attn import ms_deform_attn_2d
-from vln_ver_tpu_torch.ops.deform_cuda import (KERNEL, KERNEL_BWD,
+from vln_ver_tpu_torch.ops.deform_cuda import (GATHER, KERNEL, KERNEL_BWD,
                                               ms_deform_attn_2d_fused)
 
 pytestmark = pytest.mark.gpu
@@ -97,14 +97,52 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
         shifted = torch.empty(locs.numel() + 1, device=cuda)[1:]
         with pytest.raises(ValueError, match="aligned"):
             ms_deform_attn_2d_fused(v, hw, shifted.view(locs.shape), wsm)
+        # a map over shared memory: the staged kernel refuses it, and the
+        # fused call takes the gather kernel instead
+        big = torch.zeros(1, 30 * 30, 4, 96, device=cuda)
         with pytest.raises(ValueError, match="shared memory"):
-            big = torch.zeros(1, 30 * 30, 4, 96, device=cuda)
-            ms_deform_attn_2d_fused(big, ((30, 30),), locs[:1], wsm[:1])
+            KERNEL(big, ((30, 30),), locs[:1], wsm[:1])
+        before = GATHER.launches
+        out = ms_deform_attn_2d_fused(big, ((30, 30),), locs[:1], wsm[:1])
+        assert GATHER.launches == before + 1 and not out.any()
     with pytest.raises(ValueError, match="shared memory"):
         big = torch.zeros(1, 32 * 32, 4, 128, device=cuda,
                           dtype=torch.bfloat16)
         g = torch.zeros(1, 57, 512, device=cuda, dtype=torch.bfloat16)
         KERNEL_BWD(big, ((32, 32),), locs[:1], wsm[:1], g)
+
+
+@pytest.mark.parametrize("dtype, dim, levels, bs, nq", [
+    (torch.float32, 32, ((116, 200), (58, 100), (29, 50), (15, 25)), 2, 300),
+    (torch.bfloat16, 32, ((116, 200), (58, 100), (29, 50), (15, 25)), 2, 300),
+    (torch.float32, 96, ((14, 14), (7, 7)), 3, 57),
+    (torch.float32, 40, ((200, 200),), 1, 901),
+    (torch.bfloat16, 250, ((20, 30), (10, 15)), 2, 33),
+])
+def test_gather_kernel_matches_plain(cuda, dtype, dim, levels, bs, nq):
+    """Several levels, or one map over shared memory, take the gather
+    kernel (csrc/msda_gather.cu), which agrees with the plain version."""
+    rng = np.random.default_rng(5)
+    rows, heads, pts = sum(h * w for h, w in levels), 4, 5
+    v = torch.from_numpy(rng.standard_normal(
+        (bs, rows, heads, dim)).astype(np.float32)).to(cuda, dtype)
+    locs = torch.from_numpy(rng.uniform(-0.1, 1.1, (
+        bs, nq, heads, len(levels), pts, 2)).astype(np.float32)).to(cuda)
+    wsm = torch.from_numpy(rng.standard_normal(
+        (bs, nq, heads, len(levels) * pts)).astype(np.float32)).to(
+            cuda).softmax(-1).reshape(bs, nq, heads, len(levels),
+                                      pts).contiguous()
+    before = (GATHER.launches, KERNEL.launches)
+    with torch.inference_mode():
+        got = ms_deform_attn_2d_fused(v, levels, locs, wsm)
+        torch.cuda.synchronize()
+        ref = ms_deform_attn_2d(v.float(), levels, locs, wsm)
+    assert (GATHER.launches, KERNEL.launches) == (before[0] + 1, before[1])
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    torch.testing.assert_close(got.float(), ref, rtol=tol, atol=tol)
+    v.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ms_deform_attn_2d_fused(v, levels, locs, wsm)
 
 
 def _grads(fn, v, locs, wsm, g):
@@ -749,7 +787,8 @@ def test_temporal_models_on_card_match_cpu(cuda):
 def test_bev2d_on_card_matches_cpu(cuda):
     """A small BEVFormer2D with prev_bev and can_bus: card against CPU,
     3 launches (SCA, TSA-2D, decoder) per layer pair; a two-level config
-    raises before any launch."""
+    (the gather kernel, no backward) raises before any launch where the
+    forward needs a gradient, and runs without one."""
     from vln_ver_tpu_torch.models.bev2d import BEV2DConfig, build_bev2d
     cfg = BEV2DConfig(bev_h=6, bev_w=6, embed_dims=64, num_heads=4,
                       encoder_layers=2, decoder_layers=2, ffn_dim=128,
@@ -774,8 +813,12 @@ def test_bev2d_on_card_matches_cpu(cuda):
     for k in o0:
         torch.testing.assert_close(o1[k].cpu(), o0[k], rtol=1e-4, atol=1e-4)
     two = build_bev2d(dataclasses.replace(cfg, num_levels=2), cuda)
-    with pytest.raises(ValueError, match="one level"):
-        two(feats.to(cuda), w2p.to(cuda), shift.to(cuda))
+    feats2 = [feats.to(cuda)] * 2
+    with pytest.raises(ValueError, match="no backward"):
+        two.train()(feats2, w2p.to(cuda), shift.to(cuda))
+    with torch.inference_mode():
+        out = two.eval()(feats2, w2p.to(cuda), shift.to(cuda))
+    assert torch.isfinite(out["bev_embed"]).all()
 
 
 @pytest.fixture

@@ -1,0 +1,13 @@
+"""sca_span_ms.<cell>: device ms a frame in the program's spans "bev#sca"
+(every encoder layer's spatial cross-attention, the lift), summed, over
+the number of spans "bev#frame".
+
+The stream's wall time between each span's CUDA event pair in the
+profiled phase of a traced run: idle stretches included, not the
+device's busy time."""
+
+from verbench.program_spans import device_ms
+
+
+def read(run):
+    return device_ms("bev#sca", per="bev#frame")

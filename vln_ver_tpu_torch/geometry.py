@@ -121,9 +121,14 @@ def max_visible_queries(world2pixel: np.ndarray,
                         origin_shift: np.ndarray,
                         bev_z: int = 4, bev_h: int = 15, bev_w: int = 15,
                         pc_range=PC_RANGE,
-                        image_wh=IMAGE_WH) -> int:
+                        image_wh=IMAGE_WH,
+                        pillar_anchors: int = 0) -> int:
     """Largest per-camera visible voxel-query count over a batch: the
-    least safe ``VERConfig.sca_query_capacity``.
+    least safe ``VERConfig.sca_query_capacity``.  With ``pillar_anchors``
+    the queries are a 2D BEV's pillars instead
+    (:func:`pillar_reference_points`, ``bev_z`` unused), each visible
+    where any of its anchors is: the least safe
+    ``BEV2DConfig.sca_query_capacity``.
 
     Pure numpy, on the host (dataset validation before the capacity-bounded
     sparse lift is turned on).  ``world2pixel`` is (..., cam, 4, 4) and
@@ -138,10 +143,17 @@ def max_visible_queries(world2pixel: np.ndarray,
     def centres(n):
         return (np.arange(n, dtype=np.float32) + np.float32(0.5)) \
             / np.float32(n)
-    z, y, x = np.meshgrid(centres(bev_z), centres(bev_h), centres(bev_w),
-                          indexing="ij")
-    ref = np.stack([x, y, z], axis=-1).reshape(-1, 3)
     pc = np.asarray(pc_range, np.float32)
+    if pillar_anchors:
+        z_top = np.float32(pc[5] - pc[2])
+        zs = np.linspace(0.5, z_top - 0.5, pillar_anchors,
+                         dtype=np.float32) / z_top
+        y, x, z = np.meshgrid(centres(bev_h), centres(bev_w), zs,
+                              indexing="ij")
+    else:
+        z, y, x = np.meshgrid(centres(bev_z), centres(bev_h),
+                              centres(bev_w), indexing="ij")
+    ref = np.stack([x, y, z], axis=-1).reshape(-1, 3)
     world = ref * (pc[3:6] - pc[0:3]) + pc[0:3]        # (nq, 3)
     world = world[None] + shift.reshape(-1, 1, 3)      # (B, nq, 3)
     homo = np.concatenate([world, np.ones_like(world[..., :1])], -1)
@@ -156,6 +168,8 @@ def max_visible_queries(world2pixel: np.ndarray,
     vis = ((depth > eps * (1.0 - tol))
            & (xy[..., 0] > -tol) & (xy[..., 0] < 1.0 + tol)
            & (xy[..., 1] > -tol) & (xy[..., 1] < 1.0 + tol))
+    if pillar_anchors:
+        vis = vis.reshape(*vis.shape[:-1], -1, pillar_anchors).any(-1)
     return int(vis.sum(-1).max())
 
 

@@ -10,13 +10,22 @@ can-bus conditioning and prev-BEV ego-motion alignment) and
 only as .pyc and are reconstructed from their call sites and their voxel
 liftings, as the JAX package does.
 
-All three deformable samplings are single-level 2D and go through
+All three deformable samplings are 2D and go through
 ``ops.deform_cuda.ms_deform_attn_2d_fused``: the camera lift (the port's
-``SpatialCrossAttention``, 4 pillar anchors sharing the 8 points), the 2D
-temporal self-attention over the (prev, current) BEV queue, and the
-decoder's cross-attention over the BEV grid.  On the CPU that is the
-plain version; on the card, the hand-written kernel, which samples one
-level: a config with ``num_levels > 1`` raises on CUDA tensors.
+``SpatialCrossAttention``, 4 pillar anchors sharing the 8 points, over
+``num_levels`` feature levels), the 2D temporal self-attention over the
+(prev, current) BEV queue, and the decoder's cross-attention over the BEV
+grid (one level each, as upstream).  On the CPU that is the plain
+version; on the card, a hand-written kernel: the staged one for one level
+that fits in shared memory, else the gather kernel, which has no
+backward, so that a card forward that needs a gradient there raises.
+
+At upstream BEVFormer's settings (``use_shift``, ``use_can_bus``,
+``fpn_inputs``, several ``feat_shapes``) the model is BEVFormer-base
+without its image backbone and neck: :meth:`BEVFormer2D.forward_test` is
+upstream's video inference entry (``BEVFormer.forward_test``), which
+carries ``prev_bev`` and the ego pose from frame to frame in a
+:class:`VideoState`.
 
 Module names follow the reference's mmcv layers: ``attentions.{0,1}``,
 ``norms.{0,1,2}``, ``ffns.0`` in every encoder and decoder layer.
@@ -28,12 +37,14 @@ import collections
 import dataclasses
 from typing import Callable, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
 from .. import geometry
-from ..ops.deform_cuda import ms_deform_attn_2d_fused
+from ..ops.deform_cuda import GATHER_ROUTE, ms_deform_attn_2d_fused, route
 from ..ops.sampling import bilinear_sample_2d
+from ..utils.profiling import count, span
 from .attention import (CamDeformableAttention, MultiheadAttention,
                         SpatialCrossAttention, _offset_grid_init_2d,
                         _PackedAttention)
@@ -66,6 +77,19 @@ class BEV2DConfig:
     in_channels: int = 768
     canbus_dims: int = 18
     pc_range: Tuple[float, ...] = geometry.PC_RANGE
+    # the camera features' levels, (h, w) each, finest first; empty: one
+    # level of feat_h x feat_w.  The lift samples them all; the TSA and the
+    # decoder sample the one BEV map
+    feat_shapes: Tuple[Tuple[int, int], ...] = ()
+    # features that arrive at embed_dims from an FPN, as upstream's neck
+    # gives them: no input_proj
+    fpn_inputs: bool = False
+    # the sparse lift's query slots a camera (SpatialCrossAttention's
+    # query_capacity); 0: the dense lift
+    sca_query_capacity: int = 0
+    # the image plane that normalises pixel coordinates (upstream: the
+    # padded img_shape, (w, h))
+    image_wh: Tuple[float, float] = geometry.IMAGE_WH
     # the reference as shipped: its 2D transformer zeroes the ego shift
     # (transformer.py:148) and comments out the can-bus query add
     # (:165-169); only prev-BEV rotation is live.  Upstream BEVFormer
@@ -76,6 +100,21 @@ class BEV2DConfig:
     rotate_prev_bev: bool = True
     dropout_rate: float = 0.1
     dtype: torch.dtype = torch.float32
+
+    def __post_init__(self):
+        if self.feat_shapes and len(self.feat_shapes) != self.num_levels:
+            raise ValueError(f"feat_shapes {self.feat_shapes} name "
+                             f"{len(self.feat_shapes)} levels, num_levels "
+                             f"is {self.num_levels}")
+        if self.fpn_inputs and self.in_channels != self.embed_dims:
+            raise ValueError(f"fpn_inputs: in_channels {self.in_channels} "
+                             f"must be embed_dims {self.embed_dims}")
+
+    @property
+    def level_shapes(self) -> Tuple[Tuple[int, int], ...]:
+        """(h, w) of each camera feature level."""
+        return (tuple(tuple(s) for s in self.feat_shapes)
+                or ((self.feat_h, self.feat_w),) * self.num_levels)
 
     @property
     def bev_num(self) -> int:
@@ -301,12 +340,13 @@ class BEV2DEncoderLayer(nn.Module):
     def __init__(self, cfg: BEV2DConfig):
         super().__init__()
         self.attentions = nn.ModuleList([
-            TemporalSelfAttention2D(cfg.embed_dims, cfg.num_heads,
-                                    cfg.num_levels, cfg.tsa_num_points, 2,
-                                    cfg.dtype, cfg.dropout_rate),
+            TemporalSelfAttention2D(cfg.embed_dims, cfg.num_heads, 1,
+                                    cfg.tsa_num_points, 2, cfg.dtype,
+                                    cfg.dropout_rate),
             SpatialCrossAttention(cfg.embed_dims, cfg.num_heads,
                                   cfg.num_levels, cfg.sca_num_points,
-                                  cfg.dtype, 0, cfg.dropout_rate)])
+                                  cfg.dtype, cfg.sca_query_capacity,
+                                  cfg.dropout_rate)])
         self.norms = nn.ModuleList([LayerNorm(cfg.embed_dims, cfg.dtype)
                                     for _ in range(3)])
         self.ffns = nn.ModuleList([FFN(cfg.embed_dims, cfg.ffn_dim,
@@ -316,24 +356,34 @@ class BEV2DEncoderLayer(nn.Module):
     def forward(self, query, value, reference_points_cam, bev_mask,
                 spatial_shapes, prev_bev, ref_current, ref_prev,
                 bev_pos=None, frame_query=None):
-        query = self.norms[0](self.attentions[0](
-            query, prev_bev, ref_current, ref_prev, self.bev_shape,
-            query_pos=bev_pos, frame_query=frame_query))
-        query = self.norms[1](self.attentions[1](
-            query, value, reference_points_cam, bev_mask, spatial_shapes))
+        with span("bev#tsa"):
+            query = self.norms[0](self.attentions[0](
+                query, prev_bev, ref_current, ref_prev, self.bev_shape,
+                query_pos=bev_pos, frame_query=frame_query))
+        with span("bev#sca"):
+            query = self.norms[1](self.attentions[1](
+                query, value, reference_points_cam, bev_mask,
+                spatial_shapes))
         return self.norms[2](self.ffns[0](query))
 
 
 class BEVFormerEncoder2D(nn.Module):
     """BEVFormerEncoder (reconstructed from its voxel lifting,
     voxel_encoder.py:30-296): the pillar-sampled camera lift and the
-    TSA."""
+    TSA.
+
+    With a query capacity K (``sca_query_capacity``, below the BEV's
+    queries) ``last_overflow`` is, after each call, the number of visible
+    queries beyond K in the worst (sample, camera) slot, clamped at 0, an
+    int64 scalar on the device: nonzero means the sparse lift dropped
+    queries.  The dense lift drops nothing: 0."""
 
     def __init__(self, cfg: BEV2DConfig):
         super().__init__()
         self.cfg = cfg
         self.layers = nn.ModuleList([BEV2DEncoderLayer(cfg)
                                      for _ in range(cfg.encoder_layers)])
+        self.last_overflow = 0
 
     def forward(self, bev_query, value, world2pixel, origin_shift,
                 prev_bev=None, shift=None, bev_pos=None):
@@ -345,17 +395,25 @@ class BEVFormerEncoder2D(nn.Module):
             z_extent=cfg.pc_range[5] - cfg.pc_range[2], device=dev)
         cam_xy, mask = geometry.project_reference_points(
             pillars.reshape(-1, 3), world2pixel, origin_shift,
-            pc_range=cfg.pc_range)
+            pc_range=cfg.pc_range, image_wh=cfg.image_wh)
         cam_xy = cam_xy.reshape(bsz, cfg.num_cams, cfg.bev_num, anchors, 2)
         mask = mask.reshape(bsz, cfg.num_cams, cfg.bev_num, anchors)
+        cap = cfg.sca_query_capacity
+        self.last_overflow = 0
+        if cap and cap < cfg.bev_num:
+            per_slot = mask.any(dim=-1).sum(dim=-1)      # (B, cams)
+            count("lift#visible_queries",
+                  lambda: per_slot.clamp_max(cap).sum())
+            count("lift#query_slots", per_slot.numel() * cap)
+            self.last_overflow = (per_slot.max() - cap).clamp_min(0)
 
         ref_current = geometry.bev_reference_points(
             cfg.bev_h, cfg.bev_w, device=dev)[None, :, None, :].expand(
-                bsz, -1, cfg.num_levels, -1)
+                bsz, -1, 1, -1)
         if shift is None:
             shift = torch.zeros((bsz, 2), dtype=torch.float32, device=dev)
         ref_prev = ref_current + shift[:, None, None, :]
-        spatial_shapes = ((cfg.feat_h, cfg.feat_w),)
+        spatial_shapes = cfg.level_shapes
         # [prev_bev, bev_query] is stacked once before the layer loop:
         # every layer's current value slot is the frame-initial grid
         frame_query = bev_query
@@ -376,8 +434,8 @@ class DecoderLayer2D(nn.Module):
             MultiheadAttention(cfg.embed_dims, cfg.num_heads,
                                cfg.dropout_rate, cfg.dtype),
             CustomMSDeformableAttention2D(
-                cfg.embed_dims, cfg.num_heads, cfg.num_levels,
-                cfg.decoder_num_points, cfg.dtype, cfg.dropout_rate)])
+                cfg.embed_dims, cfg.num_heads, 1, cfg.decoder_num_points,
+                cfg.dtype, cfg.dropout_rate)])
         self.norms = nn.ModuleList([LayerNorm(cfg.embed_dims, cfg.dtype)
                                     for _ in range(3)])
         self.ffns = nn.ModuleList([FFN(cfg.embed_dims, cfg.ffn_dim,
@@ -438,7 +496,9 @@ class PerceptionTransformer2D(nn.Module):
         e, dt = cfg.embed_dims, cfg.dtype
         self.level_embeds = nn.Parameter(torch.empty(cfg.num_levels, e))
         self.cams_embeds = nn.Parameter(torch.empty(cfg.num_cams, e))
-        self.input_proj = Dense(cfg.in_channels, e, dt)
+        # upstream takes the FPN's maps at embed_dims as they are
+        self.input_proj = (None if cfg.fpn_inputs
+                           else Dense(cfg.in_channels, e, dt))
         if cfg.use_can_bus:
             # reference can_bus_mlp (transformer.py:77-85), its LayerNorm
             # under can_bus_norm named as upstream BEVFormer's; built only
@@ -459,33 +519,52 @@ class PerceptionTransformer2D(nn.Module):
         self.cams_embeds.normal_(generator=generator)
 
     def _prep_value(self, features):
+        """(B, cam, sum(h*w), C): each level projected (without
+        ``fpn_inputs``), plus the camera embedding and its level's
+        embedding, the levels concatenated (upstream
+        ``PerceptionTransformer.get_bev_features``)."""
         cfg = self.cfg
-        b = features.shape[0]
-        val = self.input_proj(features.reshape(
-            b, cfg.num_cams, cfg.feat_h * cfg.feat_w, -1))
-        val = val + self.cams_embeds[None, :, None, :].to(cfg.dtype)
-        return val + self.level_embeds[None, None, None, 0].to(cfg.dtype)
+        levels = (features if isinstance(features, (list, tuple))
+                  else (features,))
+        if len(levels) != cfg.num_levels:
+            raise ValueError(f"{len(levels)} feature levels, num_levels is "
+                             f"{cfg.num_levels}")
+        vals = []
+        for lvl, feat in enumerate(levels):
+            b, cams, h, w = feat.shape[:4]
+            val = feat.reshape(b, cams, h * w, -1)
+            val = (val.to(cfg.dtype) if self.input_proj is None
+                   else self.input_proj(val))
+            val = val + self.cams_embeds[None, :, None, :].to(cfg.dtype)
+            vals.append(val + self.level_embeds[None, None, None, lvl].to(
+                cfg.dtype))
+        return vals[0] if len(vals) == 1 else torch.cat(vals, dim=2)
 
     def get_bev_features(self, bev_queries, features, world2pixel,
                          origin_shift, can_bus=None, prev_bev=None,
                          bev_pos=None):
-        """bev_queries (B, h*w, C); features (B, cam, fh, fw, Cin);
-        can_bus (B, 18) or None; prev_bev (B, h*w, C) or None."""
+        """bev_queries (B, h*w, C); features (B, cam, fh, fw, Cin), or a
+        sequence of one such tensor a level; can_bus (B, 18) or None;
+        prev_bev (B, h*w, C) or None."""
         cfg = self.cfg
-        shift = torch.zeros((bev_queries.shape[0], 2), dtype=torch.float32,
-                            device=bev_queries.device)
-        if can_bus is not None:
-            if cfg.use_shift:
-                shift = ego_motion_shift(can_bus, cfg)
-            if prev_bev is not None and cfg.rotate_prev_bev:
-                prev_bev = rotate_bev(prev_bev, can_bus[:, -1], cfg.bev_h,
-                                      cfg.bev_w)
-            if cfg.use_can_bus:
-                bev_queries = bev_queries + self.can_bus_mlp(
-                    can_bus.to(cfg.dtype))[:, None, :]
-        return self.encoder(bev_queries, self._prep_value(features),
-                            world2pixel, origin_shift, prev_bev=prev_bev,
-                            shift=shift, bev_pos=bev_pos)
+        with span("bev#align"):
+            shift = torch.zeros((bev_queries.shape[0], 2),
+                                dtype=torch.float32,
+                                device=bev_queries.device)
+            if can_bus is not None:
+                if cfg.use_shift:
+                    shift = ego_motion_shift(can_bus, cfg)
+                if prev_bev is not None and cfg.rotate_prev_bev:
+                    prev_bev = rotate_bev(prev_bev, can_bus[:, -1],
+                                          cfg.bev_h, cfg.bev_w)
+                if cfg.use_can_bus:
+                    bev_queries = bev_queries + self.can_bus_mlp(
+                        can_bus.to(cfg.dtype))[:, None, :]
+        with span("bev#encoder"):
+            return self.encoder(bev_queries, self._prep_value(features),
+                                world2pixel, origin_shift,
+                                prev_bev=prev_bev, shift=shift,
+                                bev_pos=bev_pos)
 
     def forward(self, bev_queries, features, world2pixel, origin_shift,
                 object_query_embed, reg_branches, can_bus=None,
@@ -501,10 +580,11 @@ class PerceptionTransformer2D(nn.Module):
         query_pos, query = object_query_embed.chunk(2, dim=-1)
         query_pos = query_pos[None].expand(b, -1, -1)
         query = query[None].expand(b, -1, -1)
-        ref = self.reference_points(query_pos.float()).sigmoid()
-        inter_states, refs_before, raw_preds = self.decoder(
-            query.to(cfg.dtype), bev_embed, query_pos.to(cfg.dtype), ref,
-            reg_branches)
+        with span("bev#decoder"):
+            ref = self.reference_points(query_pos.float()).sigmoid()
+            inter_states, refs_before, raw_preds = self.decoder(
+                query.to(cfg.dtype), bev_embed, query_pos.to(cfg.dtype), ref,
+                reg_branches)
         return bev_embed, inter_states, refs_before, raw_preds
 
 
@@ -556,11 +636,16 @@ class BEVFormer2D(nn.Module):
         history extraction); else ``{"bev_embed", "all_cls_scores"
         (L, B, nq, classes), "all_bbox_preds" (L, B, nq, code)}``."""
         cfg = self.cfg
-        if features.is_cuda and cfg.num_levels != 1:
+        first = features[0] if isinstance(features, (list, tuple)) \
+            else features
+        if first.is_cuda and torch.is_grad_enabled() and \
+                self.gathered() and any(p.requires_grad
+                                        for p in self.parameters()):
             raise ValueError(
-                f"num_levels={cfg.num_levels}: the deformable-attention "
-                "CUDA kernel samples one level (ROADMAP item 15)")
-        b = features.shape[0]
+                f"the samplings of {self.gathered()} take the gather kernel "
+                "(ops/deform_cuda.py), which has no backward: run the "
+                "card forward under torch.no_grad() or inference_mode()")
+        b = first.shape[0]
         bev_queries = self.bev_embedding.weight[None].expand(
             b, -1, -1).to(cfg.dtype)
         bev_pos = self.positional_encoding(b)
@@ -585,6 +670,68 @@ class BEVFormer2D(nn.Module):
                            for lid, branch in enumerate(self.cls_branches)])
         return {"bev_embed": bev_embed, "all_cls_scores": cls,
                 "all_bbox_preds": bbox}
+
+    def gathered(self) -> Tuple[str, ...]:
+        """The samplings (``lift``, ``bev``) whose shapes take the gather
+        kernel on the card (``ops.deform_cuda.route``)."""
+        cfg = self.cfg
+        d = cfg.embed_dims // cfg.num_heads
+        elt = 2 if cfg.dtype == torch.bfloat16 else 4
+        # the TSA's values and the decoder's are cast to fp32
+        return tuple(name for name, shapes, e in (
+            ("lift", cfg.level_shapes, elt),
+            ("bev", ((cfg.bev_h, cfg.bev_w),), 4))
+            if route(shapes, d, e) == GATHER_ROUTE)
+
+    @span("bev#frame")
+    def forward_test(self, frame: dict, state: VideoState) -> dict:
+        """One frame of video inference, upstream's
+        ``BEVFormer.forward_test`` at batch 1: a frame of a new scene (its
+        ``scene_token`` differs from the state's) starts without
+        ``prev_bev``; the absolute can-bus's position ``[:3]`` and yaw in
+        degrees ``[-1]`` become the deltas from the previous frame, 0 where
+        there is no previous frame; the frame's ``bev_embed`` and pose are
+        the state of the next.
+
+        ``frame``: ``features`` (as :meth:`forward` takes them, batch 1),
+        ``world2pixel`` (1, cams, 4, 4), ``origin_shift`` (1, 3),
+        ``can_bus`` (18,) absolute, on the host, ``scene_token``.  Returns
+        :meth:`forward`'s outputs and ``sca_overflow``
+        (``BEVFormerEncoder2D.last_overflow``)."""
+        if frame["scene_token"] != state.scene_token:
+            state.prev_bev = None
+        state.scene_token = frame["scene_token"]
+        can_bus = np.array(frame["can_bus"], dtype=np.float64)
+        pos, angle = can_bus[:3].copy(), float(can_bus[-1])
+        count("bev#frames", 1)
+        if state.prev_bev is not None:
+            count("bev#prev_bev_frames", 1)
+            can_bus[:3] -= state.prev_pos
+            can_bus[-1] -= state.prev_angle
+        else:
+            can_bus[:3] = 0.0
+            can_bus[-1] = 0.0
+        dev = frame["world2pixel"].device
+        out = self(frame["features"], frame["world2pixel"],
+                   frame["origin_shift"],
+                   can_bus=torch.from_numpy(can_bus.astype(
+                       np.float32))[None].to(dev),
+                   prev_bev=state.prev_bev)
+        state.prev_bev = out["bev_embed"]
+        state.prev_pos, state.prev_angle = pos, angle
+        return dict(out, sca_overflow=self.transformer.encoder.last_overflow)
+
+
+@dataclasses.dataclass
+class VideoState:
+    """What :meth:`BEVFormer2D.forward_test` carries from frame to frame
+    (upstream ``BEVFormer.prev_frame_info``): the scene, the previous
+    frame's ``bev_embed``, and its absolute ego position (can-bus [:3],
+    metres) and yaw (can-bus [-1], degrees)."""
+    scene_token: object = None
+    prev_bev: Optional[torch.Tensor] = None
+    prev_pos: Optional[np.ndarray] = None
+    prev_angle: float = 0.0
 
 
 def build_bev2d(cfg: BEV2DConfig, device, seed: int = 0) -> BEVFormer2D:

@@ -1,11 +1,16 @@
-"""Single-level 2D deformable attention: the hand-written CUDA kernel.
+"""2D deformable attention: the hand-written CUDA kernels.
 
 :func:`ms_deform_attn_2d_fused` is the port of
 ``vln_ver_tpu/ops/pallas_deform.py`` (``ms_deform_attn_2d_pallas`` and
 ``ms_deform_attn_2d_pallas_v2``, one kernel for both).  A CPU tensor takes
 the plain version (:func:`.deform_attn.ms_deform_attn_2d`); a CUDA tensor
-launches ``csrc/deform_attn_2d.cu`` or raises.  The kernel is built with
-``nvcc`` and loaded with ctypes at its first launch (see :mod:`.build`).
+launches a kernel or raises.  :func:`route` picks it: one level whose
+(slot, head) map fits in shared memory goes to the staged kernel,
+``csrc/deform_attn_2d.cu``; several levels, or a larger map, to the
+gather kernel, ``csrc/msda_gather.cu`` (:data:`GATHER`, planned by
+:func:`plan_gather`), which reads its taps from global memory through L2
+and has no backward.  The kernels are built with ``nvcc`` and loaded with
+ctypes at their first launch (see :mod:`.build`).
 
 :func:`plan_launch` decides how the kernel cuts the work (query chunks,
 persistent CTAs, V stages, shared memory).  It is plain Python, so the CPU
@@ -65,6 +70,16 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def _stage_bytes(hw: int, d: int, elt: int) -> int:
+    """Bytes of one V stage of the staged kernel: ``hw`` rows at the row
+    stride (``d`` rounded up to 4 bytes) plus the slack of a lane's last
+    128-byte span."""
+    row_stride = _round_up(d * elt, 4) // elt
+    lane_vals = 4 // elt                 # one fp32 or a bf16 pair per load
+    loads = -(-d // (32 * lane_vals))    # loads per lane per row
+    return _round_up((hw - 1) * row_stride * elt + 128 * loads, 128)
+
+
 def plan_launch(bs: int, heads: int, nq: int, hw: int, d: int, elt: int,
                 sm_count: int) -> LaunchPlan:
     """The launch plan for value ``(bs, hw, heads, d)`` of ``elt``-byte
@@ -86,9 +101,7 @@ def plan_launch(bs: int, heads: int, nq: int, hw: int, d: int, elt: int,
         raise ValueError(f"empty launch: bs={bs} heads={heads} nq={nq} "
                          f"hw={hw} sm_count={sm_count}")
     row_stride = _round_up(d * elt, 4) // elt
-    lane_vals = 4 // elt                 # one fp32 or a bf16 pair per load
-    loads = -(-d // (32 * lane_vals))    # loads per lane per row
-    stage_bytes = _round_up((hw - 1) * row_stride * elt + 128 * loads, 128)
+    stage_bytes = _stage_bytes(hw, d, elt)
     if HEADER_BYTES + stage_bytes > MAX_SMEM_BYTES:
         raise ValueError(
             f"one (slot, head) value tile ({hw} x {d}, {elt}-byte values) "
@@ -312,29 +325,101 @@ def backward_cta_work(plan: BackwardPlan, nq: int, d: int, cta: int
     return ("sums", pair, 0, d, range(q0, min(nq, q0 + plan.chunk)))
 
 
+STAGED, GATHER_ROUTE = "staged", "gather"
+# csrc/msda_gather.cu: kWarps a block, kMaxLevels
+GATHER_WARPS = 8
+GATHER_MAX_LEVELS = 16
+# the gather kernel's warps take more than one item each only where every
+# SM would still get this many warps of work, eight times over
+_GATHER_WARPS_PER_SM = 64 * 8
+_GATHER_MAX_ITEMS_PER_WARP = 8
+
+
+def route(spatial_shapes: Sequence[Tuple[int, int]], d: int,
+          elt: int) -> str:
+    """The kernel a CUDA call takes: :data:`STAGED` (``deform_attn_2d.cu``)
+    for one level whose (slot, head) value tile fits in shared memory,
+    else :data:`GATHER_ROUTE` (``msda_gather.cu``)."""
+    if len(spatial_shapes) == 1:
+        (h, w), = spatial_shapes
+        if HEADER_BYTES + _stage_bytes(h * w, d, elt) <= MAX_SMEM_BYTES:
+            return STAGED
+    return GATHER_ROUTE
+
+
+class GatherPlan(NamedTuple):
+    """How a gather launch cuts the work: item ``i`` is (slot, query,
+    head) ``i = (b * nq + q) * heads + h``; warp ``k`` of the grid takes
+    items ``[k * items_per_warp, (k + 1) * items_per_warp)``."""
+    items: int           # bs * nq * heads
+    items_per_warp: int
+    blocks: int          # ceil(items / (GATHER_WARPS * items_per_warp))
+
+
+def plan_gather(bs: int, heads: int, nq: int, levels: int, d: int, elt: int,
+                sm_count: int) -> GatherPlan:
+    """The gather kernel's grid for ``nq`` queries of ``bs`` slots over
+    ``levels`` levels of ``elt``-byte values of ``d`` channels a head.
+    Raises ``ValueError`` on what the kernel does not take."""
+    if elt not in (2, 4):
+        raise ValueError(f"element size {elt}: the kernel takes fp32 (4) "
+                         "or bf16 (2)")
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d} outside (0, {MAX_HEAD_DIM}]")
+    if elt == 2 and d % 2:
+        raise ValueError(f"head_dim {d}: bf16 values are read in pairs, "
+                         "so the gather kernel takes an even head_dim")
+    if not 0 < levels <= GATHER_MAX_LEVELS:
+        raise ValueError(f"{levels} levels outside (0, "
+                         f"{GATHER_MAX_LEVELS}]")
+    if min(bs, heads, nq, sm_count) < 1:
+        raise ValueError(f"empty launch: bs={bs} heads={heads} nq={nq} "
+                         f"sm_count={sm_count}")
+    items = bs * nq * heads
+    per = max(1, min(_GATHER_MAX_ITEMS_PER_WARP,
+                     items // (sm_count * _GATHER_WARPS_PER_SM)))
+    blocks = -(-items // (GATHER_WARPS * per))
+    if blocks > _INT_MAX:
+        raise ValueError(f"{blocks} blocks exceed the grid's limit")
+    return GatherPlan(items=items, items_per_warp=per, blocks=blocks)
+
+
 def _check_inputs(value: torch.Tensor,
                   spatial_shapes: Sequence[Tuple[int, int]],
                   locations: torch.Tensor, weights: torch.Tensor):
-    """Raise on what the kernels do not take; return (bs, H, W, heads, d,
-    nq, P)."""
+    """Raise on what the staged kernels do not take; return (bs, H, W,
+    heads, d, nq, P)."""
     if len(spatial_shapes) != 1:
         raise ValueError("the CUDA kernel takes one level, got "
                          f"spatial_shapes={spatial_shapes}")
+    bs, _, heads, d, nq, _, P = _check_layout(value, spatial_shapes,
+                                              locations, weights)
     (H, W), = spatial_shapes
+    return bs, H, W, heads, d, nq, P
+
+
+def _check_layout(value: torch.Tensor,
+                  spatial_shapes: Sequence[Tuple[int, int]],
+                  locations: torch.Tensor, weights: torch.Tensor):
+    """Raise on what no kernel takes; return (bs, nv, heads, d, nq, L,
+    P)."""
+    L = len(spatial_shapes)
     if value.dim() != 4:
-        raise ValueError(f"value must be (bs, H*W, heads, d), got "
+        raise ValueError(f"value must be (bs, sum(H*W), heads, d), got "
                          f"{tuple(value.shape)}")
-    bs, hw, heads, d = value.shape
+    bs, nv, heads, d = value.shape
     if locations.dim() != 6:
-        raise ValueError("locations must be (bs, nq, heads, 1, P, 2), "
+        raise ValueError("locations must be (bs, nq, heads, L, P, 2), "
                          f"got {tuple(locations.shape)}")
     nq, P = locations.shape[1], locations.shape[4]
-    if hw != H * W:
-        raise ValueError(f"value has {hw} rows, spatial shape {H}x{W}")
-    if tuple(locations.shape) != (bs, nq, heads, 1, P, 2):
+    if nv != sum(h * w for h, w in spatial_shapes):
+        raise ValueError(f"value has {nv} rows, spatial shapes "
+                         f"{tuple(spatial_shapes)}")
+    if tuple(locations.shape) != (bs, nq, heads, L, P, 2):
         raise ValueError(f"locations {tuple(locations.shape)} do not "
-                         f"match value {tuple(value.shape)}")
-    if tuple(weights.shape) != (bs, nq, heads, 1, P):
+                         f"match value {tuple(value.shape)} and {L} "
+                         "levels")
+    if tuple(weights.shape) != (bs, nq, heads, L, P):
         raise ValueError(f"weights {tuple(weights.shape)} do not match "
                          f"locations {tuple(locations.shape)}")
     if value.dtype not in (torch.float32, torch.bfloat16):
@@ -352,7 +437,7 @@ def _check_inputs(value: torch.Tensor,
     if locations.data_ptr() % 8:
         raise ValueError("locations must be 8-byte aligned (the kernel "
                          "loads each (x, y) as one float2)")
-    return bs, H, W, heads, d, nq, P
+    return bs, nv, heads, d, nq, L, P
 
 
 _SM_COUNT: Dict[int, int] = {}
@@ -524,8 +609,40 @@ class DeformAttn2dBackwardKernel(_CudaKernel):
         return dv, dl, dw
 
 
+class MsdaGatherKernel(_CudaKernel):
+    """The multi-level forward that gathers from global memory
+    (``csrc/msda_gather.cu``), with its own launch count.  Forward only."""
+
+    library, symbol = "msda_gather", "msda_gather_forward"
+    argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                + [ctypes.c_longlong, ctypes.c_void_p])
+
+    def __call__(self, value: torch.Tensor,
+                 spatial_shapes: Sequence[Tuple[int, int]],
+                 locations: torch.Tensor,
+                 weights: torch.Tensor) -> torch.Tensor:
+        bs, nv, heads, d, nq, L, P = _check_layout(
+            value, spatial_shapes, locations, weights)
+        out = torch.empty((bs, nq, heads * d), dtype=value.dtype,
+                          device=value.device)
+        if out.numel() == 0 or P == 0:
+            return out.zero_()
+        plan = plan_gather(bs, heads, nq, L, d, value.element_size(),
+                           _sm_count(value.device))
+        shapes = (ctypes.c_int * (2 * L))(
+            *[int(v) for hw in spatial_shapes for v in hw])
+        self._launch(plan, nq, value.device, value.data_ptr(),
+                     locations.data_ptr(), weights.data_ptr(),
+                     out.data_ptr(), bs, nv, heads, d, nq, L, P, shapes,
+                     int(value.dtype == torch.bfloat16), plan.items_per_warp,
+                     plan.blocks)
+        return out
+
+
 KERNEL = DeformAttn2dKernel()
 KERNEL_BWD = DeformAttn2dBackwardKernel()
+GATHER = MsdaGatherKernel()
 
 
 class _DeformAttn2d(torch.autograd.Function):
@@ -553,17 +670,29 @@ def ms_deform_attn_2d_fused(value: torch.Tensor,
                             locations: torch.Tensor,
                             weights: torch.Tensor) -> torch.Tensor:
     """Deformable attention with the layout of the plain version:
-    value ``(bs, H*W, heads, d)``, locations ``(bs, nq, heads, 1, P, 2)``,
-    weights ``(bs, nq, heads, 1, P)``; returns ``(bs, nq, heads*d)`` in
-    the value dtype.  CPU tensors take the plain version (and its
-    autograd); CUDA tensors launch the kernel, and where an input needs a
-    gradient its backward launches the backward kernel."""
+    value ``(bs, sum(H*W), heads, d)``, locations ``(bs, nq, heads, L, P,
+    2)``, weights ``(bs, nq, heads, L, P)``; returns ``(bs, nq, heads*d)``
+    in the value dtype.  CPU tensors take the plain version (and its
+    autograd).  CUDA tensors launch the kernel :func:`route` names; on the
+    staged kernel, where an input needs a gradient, its backward launches
+    the backward kernel.  The gather kernel has no backward: a call that
+    would need one raises."""
     if value.device.type == "cpu":
         return ms_deform_attn_2d(value, spatial_shapes, locations, weights)
     if value.device.type != "cuda":
         raise ValueError(f"no deformable-attention path for device "
                          f"{value.device}")
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (value, locations, weights)):
+    grad = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (value, locations, weights))
+    if route(spatial_shapes, value.shape[-1],
+             value.element_size()) == GATHER_ROUTE:
+        if grad:
+            raise NotImplementedError(
+                f"spatial_shapes {tuple(spatial_shapes)} with head_dim "
+                f"{value.shape[-1]} take the gather kernel "
+                "(csrc/msda_gather.cu), which has no backward: run it "
+                "under torch.no_grad() or inference_mode()")
+        return GATHER(value, spatial_shapes, locations, weights)
+    if grad:
         return _DeformAttn2d.apply(value, spatial_shapes, locations, weights)
     return KERNEL(value, spatial_shapes, locations, weights)
