@@ -71,6 +71,18 @@ Phases (any failure exits nonzero, nothing is caught):
      its GFLOP a viewpoint (318.5 and 1,672 at this width; a backward
      counted as twice the forward) and its share of the card's fp32 /
      bf16 peak; an ``upsampler`` JSON line;
+  5c. the occupancy MLP kernel (csrc/occ_mlp.cu) at the headline's even
+     grid (OCC_MLP_SHAPES: batch 1 and 8 of 60 x 60 cells x 35 planes of
+     128 bf16 channels, 16 classes; random weights, biases and LayerNorm
+     affines from seed 9): the bias cell's rows and the lattice, 2
+     launches a call, against the eager chain (the ``ClsBranch`` module
+     and ``ops.occ_mlp.lattice_plain``): the bias cell's logits, and the
+     whole lattice against the eager chain's (built from the eager bias
+     logits), no further from it than the eager chain is from the same
+     chain in float64 (``branch_float64``); every odd cell the bias logits
+     the kernel was given, bit for bit; the kernel timed (CUDA events)
+     beside its bound (the rows read and the lattice written once) and the
+     eager chain's time;
   6. run the full forward and the eval path as ``python -m
      vln_ver_tpu_torch.test`` does (configs/verformer/vocc.py at full
      width, the same random weights from seed 0, 8 synthetic viewpoints
@@ -233,8 +245,9 @@ Phases (any failure exits nonzero, nothing is caught):
      it (VERConfig(num_cams=36, dtype=bfloat16), seed-0 weights, the
      example inputs of numpy seed 0): the capacity derived from the rig
      (192); one forward at batch 8 of the sparse and of the dense lift, 3
-     forward launches each (nq 192 and 900) and no backward, sca_overflow
-     0; the same weights in fp32 at batch 8: the sparse lift's bev_embed
+     forward launches each (nq 192 and 900) and no backward, and 2
+     launches of the occupancy MLP kernel each, sca_overflow 0; the same
+     weights in fp32 at batch 8: the sparse lift's bev_embed
      within 1e-5 of the dense lift's; one fp32 only_bev forward at batch 1
      against the CPU (rtol 1e-4, atol 1e-4).  Then ``bench.main`` with its
      defaults (the forward at batch 8 and 4, the e2e dump and the image
@@ -244,7 +257,10 @@ Phases (any failure exits nonzero, nothing is caught):
      batch 2, 3 runs: 3 forward launches a run, the differing outputs
      reported, not failed on); ``bench_train`` in step mode (36 cameras,
      bf16, batch 2, 2 timed iterations a sample: a finite loss, 3 forward
-     and 3 backward launches a step).
+     and 3 backward launches a step).  The occupancy MLP kernel's launches
+     are counted around each of them beside the calls of the head's
+     even-cell path (``occ_launches``): 2 a call in ``bench.main`` and
+     ``check_determinism``, none in ``bench_train`` (autograd on).
      Then the ``kernels`` line and the script's total time.
 The last line is the ``{"ok": true, "device": ...}`` JSON object.
 """
@@ -356,6 +372,9 @@ HEADLINE_SHAPES = [
     ("36-view B=2 nq=192", 72, HEADLINE_QCAP, True),
 ]
 PLAIN_SLOTS = 72
+# phase 5c: the occupancy MLP kernel at the headline's even grid, (batch,
+# h2, w2, occ_z, occ_dims, occupancy_classes) at batch 1 and 8
+OCC_MLP_SHAPES = [(1, 60, 60, 35, 128, 16), (8, 60, 60, 35, 128, 16)]
 # phase 5b: the upsampler at the headline's batch and the eval batch; its
 # bf16 holds against the dense route in relative L2 (several bf16
 # roundings of the tap and phase sums against one)
@@ -816,6 +835,132 @@ def upsampler_routes(card):
         fail(f"the upsampler's stage-1 weight gradient is {wgrad['3d']:.3e} "
              "off a float64 run in relative L2 (limit 1e-5)")
     torch.cuda.empty_cache()
+    return numbers
+
+
+def branch_float64(branch, x):
+    """A two-hidden-layer ``ClsBranch``'s function in float64 with no
+    rounding: the yardstick of the rounding error of both the occupancy MLP
+    kernel and the eager chain (phase 5c and ``tests/test_torch_occ_mlp.py``).
+    """
+    import torch
+    with torch.no_grad():
+        h = x.double()
+        for i in (0, 3):
+            ln = branch[i + 1]
+            h = torch.nn.functional.layer_norm(
+                h @ branch[i].weight.double().t() + branch[i].bias.double(),
+                h.shape[-1:], ln.weight.double(), ln.bias.double(),
+                ln.eps).clamp_min(0)
+        return h @ branch[-1].weight.double().t() + branch[-1].bias.double()
+
+
+@contextlib.contextmanager
+def occ_launches():
+    """Counts, inside the block, the occupancy MLP kernel's launches and the
+    calls of the head's even-cell occupancy path
+    (``VoxelFormerOccupancyHead._bias_aware_logits``, wrapped for the
+    block): yields a dict whose ``calls`` and ``launches`` hold them."""
+    from vln_ver_tpu_torch.models.head import VoxelFormerOccupancyHead
+    from vln_ver_tpu_torch.ops.occ_mlp import KERNEL as OCC
+    inner = VoxelFormerOccupancyHead._bias_aware_logits
+    got = {"calls": 0, "launches": 0}
+
+    def counted(self, *args, **kwargs):
+        got["calls"] += 1
+        return inner(self, *args, **kwargs)
+
+    VoxelFormerOccupancyHead._bias_aware_logits = counted
+    OCC.launches = 0
+    try:
+        yield got
+    finally:
+        VoxelFormerOccupancyHead._bias_aware_logits = inner
+        got["launches"] = OCC.launches
+
+
+def occ_mlp_bound_ms(b, h2, w2, oz, d, n):
+    """Least time of the occupancy MLP and its lattice: the bf16 rows read
+    once and the fp32 lattice written once, or the two bf16 products at the
+    tensor-core peak, or the fp32 last layer at the fp32 peak, whichever is
+    longest."""
+    rows = b * h2 * w2 * oz
+    moved = rows * d * 2 + b * oz * 4 * h2 * w2 * n * 4
+    return 1e3 * max(moved / HBM_BYTES_PER_S,
+                     4.0 * rows * d * d / BF16_FLOP_PER_S,
+                     2.0 * rows * d * n / FP32_FLOP_PER_S)
+
+
+def occ_mlp_shapes(card):
+    """Phase 5c: the occupancy MLP kernel against the eager chain at the
+    headline's even grid; returns the ``occ_mlp`` JSON line's numbers."""
+    import torch
+
+    from vln_ver_tpu_torch.models.head import ClsBranch
+    from vln_ver_tpu_torch.ops.occ_mlp import (KERNEL, lattice_plain,
+                                               occ_mlp_lattice, occ_mlp_rows)
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    numbers = {}
+    for b, h2, w2, oz, d, n in OCC_MLP_SHAPES:
+        gen = torch.Generator().manual_seed(9)
+        branch = ClsBranch(d, n, 2, bf16)
+        with torch.no_grad():
+            for m in branch:
+                for t in m.parameters():
+                    t.copy_(torch.randn(t.shape, generator=gen)
+                            / (t.shape[-1] ** 0.5 if t.dim() == 2 else 5.0))
+            for i in (1, 4):
+                branch[i].weight.add_(1.0)
+        branch = branch.to(dev).eval()
+        x = (0.7 * torch.randn(b, h2, w2, oz, d, generator=gen)).to(dev, bf16)
+        bias_rows = (0.7 * torch.randn(oz, d, generator=gen)).to(dev, bf16)
+        with torch.inference_mode():
+            before = KERNEL.launches
+            bias_logits = occ_mlp_rows(bias_rows, branch)
+            got = occ_mlp_lattice(x, branch, bias_logits)
+            torch.cuda.synchronize()
+            launches = KERNEL.launches - before
+            odd_equal = all(torch.equal(
+                got[:, :, dy::2, dx::2],
+                bias_logits[None, :, None, None].expand(b, oz, h2, w2, n))
+                for dy, dx in ((0, 1), (1, 0), (1, 1)))
+            # the eager chain: the branch module on the bias rows, and the
+            # plain lattice from its bias logits
+            bias_plain = branch(bias_rows)
+            rows_err = float((bias_logits - bias_plain).abs().max())
+            want = lattice_plain(x, branch, bias_plain)
+            err = float((got - want).abs().max())
+            del want
+            # the eager chain's own error, a batch at a time
+            eager_err = max(float((branch(x[i]).double() - branch_float64(
+                branch, x[i])).abs().max()) for i in range(b))
+            ms = time_ms(lambda: occ_mlp_lattice(x, branch, bias_logits),
+                         iters=50, warmup=5)
+            eager_ms = time_ms(lambda: lattice_plain(x, branch, bias_logits),
+                               iters=10, warmup=2)
+        bound = occ_mlp_bound_ms(b, h2, w2, oz, d, n)
+        tag = f"B={b}"
+        numbers[tag] = {"ms": ms, "bound_ms": bound,
+                        "share": 100.0 * bound / ms, "eager_ms": eager_ms,
+                        "max_abs_err": err, "rows_max_abs_err": rows_err,
+                        "eager_max_abs_err": eager_err,
+                        "launches": launches}
+        print(f"occupancy MLP kernel {tag} ({b * h2 * w2 * oz} rows of {d}, "
+              f"n={n}): {ms:.4f} ms, bound {bound:.4f} ms "
+              f"({100.0 * bound / ms:.1f} %), eager chain {eager_ms:.4f} ms "
+              f"({eager_ms / ms:.1f}x); max_abs_err {err:.3e} (lattice), "
+              f"{rows_err:.3e} (bias cell's rows) against the eager chain, "
+              f"whose own against float64 is {eager_err:.3e}; odd cells the "
+              f"bias logits bit for bit {odd_equal}; {launches} launches a "
+              f"call [{card}]")
+        if (launches != 2 or not odd_equal or err > eager_err
+                or rows_err > eager_err):
+            fail(f"occupancy MLP kernel {tag}: launches {launches}, odd cells "
+                 f"equal {odd_equal}, max_abs_err {err:.3e} (lattice) and "
+                 f"{rows_err:.3e} (rows) against the eager chain (limit "
+                 f"{eager_err:.3e})")
+        del x, got, branch, bias_plain
+        torch.cuda.empty_cache()
     return numbers
 
 
@@ -3533,12 +3678,13 @@ def headline_breakdown(model, ins, card):
     from torch.profiler import ProfilerActivity, profile
 
     head = model.pts_bbox_head
+    # the bf16 forward runs the occupancy MLP in its kernel, not in the
+    # branch module, so no module hook sees it: the last stage is occ_proj
     stages = {"encoder": [head.transformer.encoder],
               "decoder with branches": [head.transformer.decoder,
                                         *head.cls_branches],
               "upsampler": [head.up_sample],
-              "occupancy projection and MLP": [head.occ_proj,
-                                               head.occ_branches]}
+              "occupancy projection": [head.occ_proj]}
     last = {}
 
     def one():
@@ -3636,7 +3782,8 @@ def visibility_flips(cfg, w2p, shift):
 def headline_path(card):
     """Phase 13: the 36-view headline (``vln_ver_tpu_torch.bench``), then
     ``check_determinism`` and ``bench_train`` at their defaults.  Returns
-    ({run: (forward launches, backward launches)}, numbers)."""
+    ({run: (forward launches, backward launches), "occ": {run: the
+    occupancy MLP kernel's launches}}, numbers)."""
     import dataclasses
     import math
     import tempfile
@@ -3670,19 +3817,22 @@ def headline_path(card):
 
     heads = ("bev_embed", "occupancy_preds", "all_cls_scores",
              "all_bbox_preds")
+    occ = {}
     for cap in (qcap, 0):
         model = on_card(torch.bfloat16, cap)
         KERNEL.launches = KERNEL_BWD.launches = 0
-        with torch.inference_mode():
+        with torch.inference_mode(), occ_launches() as occ[cap]:
             outs = model(*ins)
-        torch.cuda.synchronize()
-        got = (KERNEL.launches, KERNEL_BWD.launches, KERNEL.last_nq)
-        want = (model.cfg.encoder_layers, 0, cap or model.cfg.bev_num)
+            torch.cuda.synchronize()
+        got = (KERNEL.launches, KERNEL_BWD.launches, KERNEL.last_nq,
+               occ[cap]["calls"], occ[cap]["launches"])
+        want = (model.cfg.encoder_layers, 0, cap or model.cfg.bev_num, 1, 2)
         overflow = int(outs["sca_overflow"])
         bad = [k for k in heads if not bool(torch.isfinite(
             outs[k].float()).all())]
         print(f"headline bf16 forward at batch {HEADLINE_BATCH}, capacity "
-              f"{cap}: (forward, backward launches, nq) {got}, expected "
+              f"{cap}: (forward, backward launches, nq, occupancy calls, "
+              f"occupancy MLP launches) {got}, expected "
               f"{want}; sca_overflow {overflow}; non-finite {bad}; "
               f"shapes {[tuple(outs[k].shape) for k in heads]}")
         if got != want or overflow or bad:
@@ -3729,11 +3879,12 @@ def headline_path(card):
     del model, bevs, cpu_model, weights, card1, cpu1
     torch.cuda.empty_cache()
 
-    launches = {}
+    launches = {"occ": {"forward": occ[qcap]["launches"],
+                        "forward_dense": occ[0]["launches"]}}
     data_dir = tempfile.mkdtemp(prefix="chip_smoke_bench_")
     try:
         KERNEL.launches = KERNEL_BWD.launches = 0
-        with memory_h5():
+        with memory_h5(), occ_launches() as occ["bench"]:
             line = bench.main(["--data-dir", data_dir])
         launches["bench"] = (KERNEL.launches, KERNEL_BWD.launches)
     finally:
@@ -3750,29 +3901,51 @@ def headline_path(card):
              f"{launches['bench']} (3 forward launches a call, no backward)")
     print(f"headline: bench.main launched the forward kernel "
           f"{launches['bench'][0]} times (3 a forward), the backward "
-          f"{launches['bench'][1]} [{card}]")
+          f"{launches['bench'][1]}, the occupancy MLP kernel "
+          f"{occ['bench']['launches']} over {occ['bench']['calls']} calls of "
+          f"the head's occupancy path (2 a call) [{card}]")
+    if (not occ["bench"]["calls"]
+            or occ["bench"]["launches"] != 2 * occ["bench"]["calls"]):
+        fail(f"bench.main: the occupancy MLP kernel launched "
+             f"{occ['bench']['launches']} times over "
+             f"{occ['bench']['calls']} calls (2 a call)")
+    launches["occ"]["bench"] = occ["bench"]["launches"]
     torch.cuda.empty_cache()
 
     KERNEL.launches = KERNEL_BWD.launches = 0
-    det = check_determinism.run(check_determinism.parse_args([]))
+    with occ_launches() as occ["determinism"]:
+        det = check_determinism.run(check_determinism.parse_args([]))
     launches["determinism"] = (KERNEL.launches, KERNEL_BWD.launches)
+    launches["occ"]["determinism"] = occ["determinism"]["launches"]
     runs = len(det["prints"])
-    if launches["determinism"] != (3 * runs, 0):
-        fail(f"check_determinism launched {launches['determinism']}, "
-             f"expected (3 x {runs} runs, 0)")
+    if (launches["determinism"] != (3 * runs, 0)
+            or occ["determinism"]["calls"] != runs
+            or occ["determinism"]["launches"] != 2 * runs):
+        fail(f"check_determinism launched {launches['determinism']} and the "
+             f"occupancy MLP kernel {occ['determinism']['launches']} times "
+             f"over {occ['determinism']['calls']} calls, expected (3 x "
+             f"{runs} runs, 0) and 2 x {runs}")
     print(f"check_determinism (36 cameras, bf16, batch 2, {runs} runs): "
           f"bitwise deterministic {det['bitwise_deterministic']}, outputs "
           f"that differ {det['differs']} [{card}]")
     torch.cuda.empty_cache()
 
     KERNEL.launches = KERNEL_BWD.launches = 0
-    train = bench_train.main(["--iters", "2"])
+    with occ_launches() as occ["bench_train"]:
+        train = bench_train.main(["--iters", "2"])
     launches["bench_train"] = (KERNEL.launches, KERNEL_BWD.launches)
+    launches["occ"]["bench_train"] = occ["bench_train"]["launches"]
     steps = train["steps_run"]
     if (launches["bench_train"] != (3 * steps, 3 * steps)
+            or occ["bench_train"]["launches"]
             or not math.isfinite(train["last_loss"])):
         fail(f"bench_train: launches {launches['bench_train']} over {steps} "
-             f"steps (3 + 3 a step), last loss {train['last_loss']}")
+             f"steps (3 + 3 a step), the occupancy MLP kernel "
+             f"{occ['bench_train']['launches']} (none: autograd on), last "
+             f"loss {train['last_loss']}")
+    print(f"check_determinism and bench_train: the occupancy MLP kernel "
+          f"{launches['occ']['determinism']} and "
+          f"{launches['occ']['bench_train']} launches [{card}]")
     torch.cuda.empty_cache()
     # the same upsampler call again at the end of the phase: its time has
     # been seen to differ within one process
@@ -4114,6 +4287,10 @@ def main() -> None:
     print(json.dumps({"upsampler": {**upsampler_routes(card),
                                     "card": card}}))
 
+    # -- phase 5c: the occupancy MLP kernel vs the eager chain -------------
+    occ_mlp = occ_mlp_shapes(card)
+    print(json.dumps({"occ_mlp": {**occ_mlp, "card": card}}))
+
     # -- phase 6: full forward and eval ------------------------------------
     launches_eval, bwd_launches_eval, samples = full_forward_and_eval(
         model, ver, card)
@@ -4277,6 +4454,27 @@ def main() -> None:
                                 if n.startswith("bwd_")}
                             for k, r in headline_timing.items()
                             if "bwd_ms" in r},
+        "card": card,
+    }, {
+        "name": "occ_mlp",
+        "route": "cuda",
+        "source": "vln_ver_tpu_torch/csrc/occ_mlp.cu",
+        "replaces": None,
+        "launches_headline_forward": headline_launches["occ"]["forward"],
+        "launches_headline_forward_dense":
+            headline_launches["occ"]["forward_dense"],
+        "launches_bench": headline_launches["occ"]["bench"],
+        "launches_determinism": headline_launches["occ"]["determinism"],
+        "launches_bench_train": headline_launches["occ"]["bench_train"],
+        "max_abs_err": occ_mlp["B=1"]["max_abs_err"],
+        "ms": occ_mlp["B=1"]["ms"],
+        "bound_ms": occ_mlp["B=1"]["bound_ms"],
+        "bound_share": occ_mlp["B=1"]["bound_ms"] / occ_mlp["B=1"]["ms"],
+        "eager_ms": occ_mlp["B=1"]["eager_ms"],
+        "max_abs_err_b8": occ_mlp["B=8"]["max_abs_err"],
+        "ms_b8": occ_mlp["B=8"]["ms"],
+        "bound_ms_b8": occ_mlp["B=8"]["bound_ms"],
+        "eager_ms_b8": occ_mlp["B=8"]["eager_ms"],
         "card": card,
     }]}))
     print(f"chip_smoke total: {time.perf_counter() - T_START:.2f}s")

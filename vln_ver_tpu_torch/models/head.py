@@ -22,7 +22,9 @@ upsampled volume reaches ``occ_proj``:
   the full volume is never built: ``occ_proj`` and the occupancy MLP run
   on the even (y, x) cells (``OccUpsampler.informative``) plus one bias
   cell and the logits are interleaved: the same function as
-  ``'zhwc_dense'`` with a quarter of the projection work;
+  ``'zhwc_dense'`` with a quarter of the projection work.  In bf16
+  inference on the card the MLP and the interleave are one kernel
+  (``ops/occ_mlp.py``, ``csrc/occ_mlp.cu``);
 * ``'zhwc_dense'``: every cell projected;
 * ``'ref'``: the reference's raw ``.view`` reinterpretations (head:558,
   564), so that weights converted from a reference checkpoint give the
@@ -39,8 +41,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.occ_mlp import (fused_route, lattice_plain, occ_mlp_lattice,
+                           occ_mlp_rows)
 from ..utils.cuda_graph import GraphCache
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from .config import VERConfig
 from .decoder import inverse_sigmoid
 from .layers import ConvTranspose3d, Dense, LayerNorm
@@ -309,18 +313,23 @@ class VoxelFormerOccupancyHead(nn.Module):
                 self.up_sample = OccUpsampler(e, upsampler_stages(cfg), dt)
 
     # -- occupancy -----------------------------------------------------
-    def _occ_logits_grid(self, x: torch.Tensor) -> torch.Tensor:
-        """x (B, Z, h, w, C) voxel features -> occupancy logits
-        (B, occ_z, h, w, n); occ_proj and the MLP are pointwise over the
-        (h, w) cells, so any grid of cells goes through."""
+    def _occ_proj_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, Z, h, w, C) voxel features -> occ_proj's output as rows
+        (B, h, w, occ_z, occ_dims), contiguous; occ_proj is pointwise over
+        the (h, w) cells, so any grid of cells goes through."""
         cfg = self.cfg
         if cfg.bev_z == cfg.occ_zdim:
-            return self.occ_branches(self.occ_proj(x))
+            return self.occ_proj(x).permute(0, 2, 3, 1, 4).contiguous()
         b, z, h, w, c = x.shape
         # fuse the z axis: (B, h, w, Z*C) -> (B, h, w, occ_z*occ_dims)
         occ = self.occ_proj(x.permute(0, 2, 3, 1, 4).reshape(b, h, w, z * c))
-        occ = occ.reshape(b, h, w, cfg.occ_zdim, cfg.occ_dims)
-        return self.occ_branches(occ).permute(0, 3, 1, 2, 4)
+        return occ.reshape(b, h, w, cfg.occ_zdim, cfg.occ_dims)
+
+    def _occ_logits_grid(self, x: torch.Tensor) -> torch.Tensor:
+        """x (B, Z, h, w, C) voxel features -> occupancy logits
+        (B, occ_z, h, w, n): occ_proj and the MLP on every (h, w) cell."""
+        return self.occ_branches(self._occ_proj_rows(x)).permute(
+            0, 3, 1, 2, 4)
 
     @span("ver#occupancy")
     def _occupancy_dispatch(self, bev_embed: torch.Tensor) -> torch.Tensor:
@@ -349,16 +358,26 @@ class VoxelFormerOccupancyHead(nn.Module):
                            last_bias: torch.Tensor) -> torch.Tensor:
         """The upsampler's even grid ``e`` (B, Z, H'/2, W'/2, C) and last
         bias -> logits (B, occ_z, H', W', n): the even (y, x) cells through
-        occ_proj and the MLP, every other cell the logits of the bias."""
+        occ_proj and the MLP, every other cell the logits of the bias.
+        Where :func:`.occ_mlp.fused_route` allows, the MLP and the lattice
+        are one kernel (:func:`.occ_mlp.occ_mlp_rows` for the bias cell,
+        :func:`.occ_mlp.occ_mlp_lattice`); elsewhere the branch module and
+        :func:`.occ_mlp.lattice_plain`.  Counts ``occ#calls`` and
+        ``occ#fused_calls``."""
         cfg = self.cfg
         bias = last_bias.to(e.dtype)
-        even_logits = self._occ_logits_grid(e + bias)
-        bias_logits = self._occ_logits_grid(
-            bias.expand(1, cfg.bev_z, 1, 1, cfg.embed_dims))
-        b, oz, h2, w2, n = even_logits.shape
-        full = bias_logits.expand(b, oz, 2 * h2, 2 * w2, n).clone()
-        full[:, :, ::2, ::2] = even_logits
-        return full
+        rows = self._occ_proj_rows(e + bias)
+        bias_rows = self._occ_proj_rows(
+            bias.expand(1, cfg.bev_z, 1, 1, cfg.embed_dims)).reshape(
+                cfg.occ_zdim, cfg.occ_dims)
+        count("occ#calls", 1)
+        if fused_route(cfg, e.device, self.occ_proj.dtype, self.training):
+            count("occ#fused_calls", 1)
+            return occ_mlp_lattice(
+                rows, self.occ_branches,
+                occ_mlp_rows(bias_rows, self.occ_branches))
+        return lattice_plain(rows, self.occ_branches,
+                             self.occ_branches(bias_rows))
 
     def _occupancy_ref_layout(self, bev_embed: torch.Tensor) -> torch.Tensor:
         """The reference's refine_occ pipeline, per sample: the flat
