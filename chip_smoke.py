@@ -1,12 +1,22 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's VER volume path, its full forward and eval path,
-its training path, the VLN agent's evaluation and training paths, the VER
-server, the multi-process paths (in a process group of one: the data and
-view grid, tensor parallelism, the multi-slice grid, the pipeline), the
-temporal VER model with decoder_on_bev and the BEVFormer-2D family once on
-one NVIDIA GPU.
+"""Build the PyTorch port's CUDA kernels, hold each against its plain
+version and time it alone, then drive the port's paths once on one NVIDIA
+GPU and hold them against the CPU: the VER volume path, the full forward
+and eval path, the training path, the VLN agent's evaluation and training
+paths, the VER server, the multi-process paths (in a process group of
+one: the data and view grid, tensor parallelism, the multi-slice grid,
+the pipeline), the temporal VER model with decoder_on_bev, the
+BEVFormer-2D family and the 36-view headline model.
 
     python3 chip_smoke.py
+
+The paths are checked here, not timed: the benchmark (``python -m
+verbench.run``) times them.  The times this script prints are of the
+hand-written kernels alone (phases 5, 5c and 12) and of the upsampler's
+two routes (phase 5b).  Launch counts say which route served a call: a
+kernel's ``launches`` counts its host launches, so a launch inside a
+replayed CUDA graph is read from the recorder's ``decoder#graph_replays``
+instead.
 
 Phases (any failure exits nonzero, nothing is caught):
   1. require CUDA; print the card's name and power limit;
@@ -33,27 +43,26 @@ Phases (any failure exits nonzero, nothing is caught):
   4b. the sparse lift (the same model and viewpoints with
      sca_query_capacity=256): max_visible_queries of the viewpoints within
      256, sca_overflow 0, 3 launches per batch at nq=256, the volumes those
-     of 4 within 1e-5; volumes/s, and the kernel's graph time at nq=256
-     against nq=900;
+     of 4 within 1e-5; the kernel's graph time at nq=256 against nq=900;
   4c. the int8 upload (ver_writer.quantize_int8 on the host, dequantised on
      the card): the volumes against a CPU int8 run within 1e-4; the
-     largest deviation from 4's fp32 volumes, the upload bytes per volume;
+     largest deviation from 4's fp32 volumes;
   4d. the fused image path (uint8 views -> ViT-B/16 -> lift in one call,
      get_occ.make_bev_only; 16 synthetic viewpoints of six 224 x 224 views,
      random ViT weights from seed 1): one viewpoint's ViT features against
      the CPU within 1e-4, the volumes against a two-stage run on the card
-     (ViT, then the feature path) within 1e-5; volumes/s, the ViT's device
-     ms per batch, peak memory, upload bytes per volume;
+     (ViT, then the feature path) within 1e-5;
   5. time the kernel (CUDA events over a CUDA graph of launches, so the
      wrapper's host time is left out; and over eager launches, as a caller
      sees it) and its plain version at batch 1 and batch 4 of the main
-     path's shapes, print each timed launch's plan, the bytes bound and the
-     shared-memory floor; then the same for the backward kernel against the
-     plain version's autograd backward, with its own shared-memory floor
-     and plan, and its dvalue and dlocations / dweights halves alone; then
-     both kernels at PATH_SHAPES (graph time fp32 and bf16, the plain
-     version and its autograd, the bounds and floors), and at
-     HEADLINE_SHAPES the same (the forward alone at 288 slots);
+     path's shapes, print each timed launch's plan, the bytes bound
+     (``verbench.flops``, the benchmark's) and the shared-memory floor;
+     then the same for the backward kernel against the plain version's
+     autograd backward, with its own shared-memory floor and plan, and its
+     dvalue and dlocations / dweights halves alone; then both kernels at
+     PATH_SHAPES (graph time fp32 and bf16, the plain version and its
+     autograd, the bounds and floors), and at HEADLINE_SHAPES the same
+     (the forward alone at 288 slots);
   5b. the refine_occ upsampler's two routes at vocc.py width (768
      channels, the 4 x 15 x 15 grid to 120 x 120 in three stages, random
      weights from seed 0 with biases drawn non-zero), fp32 and bf16, batch
@@ -68,9 +77,9 @@ Phases (any failure exits nonzero, nothing is caught):
      weight gradient within 1e-5 of a float64 run in relative L2 (printed
      beside the 2D-convolution form's).  Print each route's
      device ms (CUDA events) forward, and forward with backward, beside
-     its GFLOP a viewpoint (318.5 and 1,672 at this width; a backward
-     counted as twice the forward) and its share of the card's fp32 /
-     bf16 peak; an ``upsampler`` JSON line;
+     its GFLOP a viewpoint (``verbench.flops.upsampler_flop``: 318.5 and
+     1,672 at this width; a backward counted as twice the forward) and its
+     share of the card's fp32 / bf16 peak; an ``upsampler`` JSON line;
   5c. the occupancy MLP kernel (csrc/occ_mlp.cu) at the headline's even
      grid (OCC_MLP_SHAPES: batch 1 and 8 of 60 x 60 cells x 35 planes of
      128 bf16 channels, 16 classes; random weights, biases and LayerNorm
@@ -83,32 +92,25 @@ Phases (any failure exits nonzero, nothing is caught):
      the kernel was given, bit for bit; the kernel timed (CUDA events)
      beside its bound (the rows read and the lattice written once) and the
      eager chain's time;
-  6. run the full forward and the eval path as ``python -m
-     vln_ver_tpu_torch.test`` does (configs/verformer/vocc.py at full
-     width, the same random weights from seed 0, 8 synthetic viewpoints
-     with ground truth at the full 35 x 120 x 120 occupancy grid, built in
-     memory, batch 2): the kernel's launch count must be 3 per batch,
+  6. run the eval path as ``python -m vln_ver_tpu_torch.test`` does
+     (configs/verformer/vocc.py at full width, the same random weights
+     from seed 0, 8 synthetic viewpoints with ground truth at the full
+     35 x 120 x 120 occupancy grid, built in memory, batch 2): the
+     kernel's launch count must be 3 per batch and the backward's 0,
      every metric finite and in range, the head outputs of the right
      shapes, and one eval batch's outputs must match a CPU run of the same
      weights (vocc.py widths on the 0.2 m occupancy grid: the CPU takes
-     minutes for the full grid).  Print viewpoints/s, peak device memory, the
-     device time of each stage (CUDA events around the stage's modules),
-     the device's busy share and its largest kernels;
+     minutes for the full grid);
   7. train as ``python -m vln_ver_tpu_torch.train`` does
      (configs/verformer/vocc.py at full width, the same random weights
      from seed 0, phase 6's viewpoints with ground truth, batch
-     samples_per_gpu = 1, the auction matcher): 2 warm-up steps, then 6
-     timed steps through ``make_train_step``.  Each step must launch the
-     forward and the backward kernel 3 times each, give every loss finite
-     with the full key set and a finite gradient norm, and move the
-     parameters; one step on the card must match a CPU step of the same
-     weights and batch (0.2 m grid, dropout off, host matcher): the same
-     matched queries, the losses and every parameter's gradient.  Print
-     train steps/s, peak device memory, the device time of the forward,
-     losses and matching, backward and optimizer (CUDA events), the busy
-     share and largest kernels of one profiled step, and the clip's global
-     norm (float64 sums, train.state.global_norm) against the fp32 form on
-     the model's gradient shapes: ms and kernels a call.  Then one step with
+     samples_per_gpu = 1, the auction matcher): 6 steps through
+     ``make_train_step``.  Each step must launch the forward and the
+     backward kernel 3 times each, give every loss finite with the full
+     key set and a finite gradient norm, and move the parameters; one step
+     on the card must match a CPU step of the same weights and batch (0.2
+     m grid, dropout off, host matcher): the same matched queries, the
+     losses and every parameter's gradient.  Then one step with
      remat_encoder (the forward kernel replayed on autograd's thread)
      against one without, and one step with sca_query_capacity=256
      against the dense step (the backward kernel at nq=256), each on the
@@ -132,19 +134,7 @@ Phases (any failure exits nonzero, nothing is caught):
      log-softmax over the unmasked actions and state_pred within rtol
      1e-4 / atol 1e-4, the -1e9 entries equal, the greedy action equal
      wherever the top-2 margin exceeds 1e-3; vln_ver_tpu_torch/agent/
-     replay.py).  The rates are timed over the same graphs and volumes
-     with 256 episodes (the first 16 those above), two interleaved passes
-     at batch 1 and 8, each pass's metrics in range and the batched ones
-     equal to the sequential ones: decision steps/s and episodes/s,
-     decisions per episode beside the expert paths' edges and R2R's, the
-     share of batch rows still running, device ms per policy call (CUDA
-     events; first and later calls apart), host ms per call (env
-     stepping, memory_arrays, upload, the call) and peak device memory.
-     Then the busy share of one profiled batch-8 rollout, and one later
-     policy step alone at batch 1 and 8, in a CUDA graph and eager,
-     beside its bound (the weights and inputs it reads and the outputs it
-     writes over the HBM rate, GEMM operations over the fp32 peak); then
-     an ``agent`` JSON line;
+     replay.py); an ``agent`` JSON line;
   9. the VLN agent's training as ``python -m vln_ver_tpu_torch.pretrain_vln``
      and ``train_vln`` run it, at phase 8's full width on phase 8's
      environment and volumes (no new kernel launch): the offline teacher
@@ -158,15 +148,11 @@ Phases (any failure exits nonzero, nothing is caught):
      weights and batch, pretraining's masked tokens drawn once, dropout
      off, the card's ReLUs pinned to the CPU's masks; losses within rtol
      1e-4, each gradient and the global norm within 1e-4 in relative L2;
-     agent/replay.py), then 2 warm-up and 8 timed updates, every loss
-     finite and the parameters moved: updates/s, decision steps trained/s,
-     ms per update of the rollout (host), stacking and upload, forward and
-     loss, backward, clip and AdamW (CUDA events), peak device memory, the
-     busy share of one profiled update, GFLOP an update, the global norm's
-     cost as in phase 7 on the policy's shapes; then the handoff:
-     save_model, load_model into a new policy (the weights equal) and
-     evaluate_batched at batch 8 over the 16 episodes, every metric finite
-     and in range; an ``agent_train`` JSON line;
+     agent/replay.py), then 4 updates, every loss finite and the
+     parameters moved; then the handoff: save_model, load_model into a
+     new policy (the weights equal) and evaluate_batched at batch 8 over
+     the 16 episodes, every metric finite and in range; an
+     ``agent_train`` JSON line;
   10. serve as ``python -m vln_ver_tpu_torch.serve`` does, in this
      process (``serve.serve``): configs/verformer/get_occ.py, phase 4's
      seed-0 model, ``--images`` with phase 4d's seed-1 ViT-B/16, batch_max
@@ -175,32 +161,23 @@ Phases (any failure exits nonzero, nothing is caught):
      equal to a direct make_bev_only call on the same padded batch on the
      card and within 1e-5 of phases 4 and 4d's, an error file for the
      malformed request, 3 forward launches a served batch and no
-     backward.  The rates: the server on a thread of its own, warmed by
-     one full batch of each kind, then a backlog of 256 requests written
-     at once (a quarter image requests, viewpoints drawn from phase 4's),
-     each volume within 1e-5 of phases 4 and 4d's: requests/s over the
-     backlog, latency from the client's write to the response (median,
-     max), ms a batch by stage (claim, load and validate, upload, forward
-     by CUDA events, host copy, npz write), the padded share of the rows,
-     the forward's share of the window, then 3 lone requests of each kind
-     on the idle server, peak device memory; then ``--occupancy`` at
-     vocc.py width on 2 of phase 6's viewpoints at batch_max 2, the labels
-     and volumes equal to a direct forward and decode_occupancy; a
-     ``serve`` JSON line;
+     backward; then ``--occupancy`` at vocc.py width on 2 of phase 6's
+     viewpoints at batch_max 2, the labels and volumes equal to a direct
+     forward and decode_occupancy;
   10b. one NCCL process group of world 1 (``parallel.multihost``, a local
      address and a free port), the lift on a view shard of the world
      group (index 0 of 1, so the view all-reduces run):
      ``dump_volumes(mesh=make_mesh((1, 1)))`` over phase 4's viewpoints
-     (an in-memory stand-in for h5py) with the dense lift, the volumes
-     equal to phase 4's, and the sparse lift (capacity 256), within 1e-5
-     and no overflow; one ``train --mesh 1`` step at vocc.py width
-     (weights broadcast from rank 0, the gradients all-reduced) against
-     the plain step under cudnn.deterministic (phase 7's card_step /
-     hold_step: the matched queries, the losses and every gradient);
-     ``evaluate_model(mesh=)`` over phase 6's viewpoints equal to the
-     one-process eval; ``episode_metrics`` and ``evaluate_batched`` with
-     the mesh over phase 8's 16 episodes equal to the one-process run's;
-     the group destroyed;
+     (the benchmark's in-memory stand-in for h5py, ``verbench.h5mem``)
+     with the dense lift, the volumes equal to phase 4's, and the sparse
+     lift (capacity 256), within 1e-5 and no overflow; one ``train --mesh
+     1`` step at vocc.py width (weights broadcast from rank 0, the
+     gradients all-reduced) against the plain step under
+     cudnn.deterministic (phase 7's card_step / hold_step: the matched
+     queries, the losses and every gradient); ``evaluate_model(mesh=)``
+     over phase 6's viewpoints equal to the one-process eval;
+     ``episode_metrics`` and ``evaluate_batched`` with the mesh over phase
+     8's 16 episodes equal to the one-process run's; the group destroyed;
   10c. a second NCCL group of world 1: one ``train --tp-model`` step
      (``make_tp_mesh(1, 1, 1)``, the state ``shard_state``-ed at the
      default min_size, its parameters all-gathered for the step and cut
@@ -220,48 +197,44 @@ Phases (any failure exits nonzero, nothing is caught):
      frame's only_bev forward with prev_bev and the derived tsa_shift, 3
      launches a frame, held against the CPU on 2 of the viewpoints; the
      full forward with decoder_on_bev (mlp, then pool) at batch 2 on that
-     history, 3 + 6 launches, timed at the full grid and held against the
-     CPU on the 0.2 m grid; one TSA + decoder_on_bev (mlp) train step held
-     against a CPU step as phase 7 holds its own (9 + 9 launches, every
-     TSA parameter with a gradient), then timed steps at batch 1.  Each
-     rate is timed over back-to-back calls for at least RATE_WINDOW_S, the
-     inputs on the card before the window opens;
+     history, held against the CPU on the 0.2 m grid: its first forward
+     captures the decoder's CUDA graph (3 + 6 + 6 host launches, the last
+     at the decoder's 900 queries), its second replays it (3 host
+     launches, one ``decoder#graph_replays``); one TSA + decoder_on_bev
+     (mlp) train step held against a CPU step as phase 7 holds its own
+     (9 + 9 launches, every TSA parameter with a gradient);
   12. BEVFormer-2D at BEV2DConfig's defaults (seed 2) over synthetic
      nuScenes scenes of 3 frames (a 3-degree yaw change a frame, so
      rotate_prev_bev turns the previous grid) read through NuScenesAdapter
-     (the info pkl under TMPDIR, the features in an in-memory stand-in for
-     h5py) and collated on the host, timed apart: each frame's full
+     (the info pkl under TMPDIR, the features in ``verbench.h5mem``'s
+     stand-in for h5py) and collated on the host: each frame's full
      forward with the previous frame's bev_embed at batch 1 and 4, 12
-     launches a frame, against the CPU, the chains timed as phase 11's
-     rates; one backward of a scalar of the last frame's outputs at batch
-     1 (history frames without gradients, 12 backward launches), card
-     gradients against the CPU's; then the gather kernel
-     (csrc/msda_gather.cu) at BEVFormer-base's three launch shapes
-     (GATHER_SHAPES: the 4-level lift over 6 cameras, the TSA and the
-     decoder over the 200 x 200 BEV; fp32, and bf16 at the lift's), one
-     launch each and none of the staged kernel, against the plain version,
-     timed beside its bound and the plain version's time;
-  13. the 36-view headline as ``python -m vln_ver_tpu_torch.bench`` measures
-     it (VERConfig(num_cams=36, dtype=bfloat16), seed-0 weights, the
-     example inputs of numpy seed 0): the capacity derived from the rig
-     (192); one forward at batch 8 of the sparse and of the dense lift, 3
+     launches a frame, against the CPU; one backward of a scalar of the
+     last frame's outputs at batch 1 (history frames without gradients,
+     12 backward launches), card gradients against the CPU's; then the
+     gather kernel (csrc/msda_gather.cu) at BEVFormer-base's three launch
+     shapes (GATHER_SHAPES: the 4-level lift over 6 cameras, the TSA and
+     the decoder over the 200 x 200 BEV; fp32, and bf16 at the lift's),
+     one launch each and none of the staged kernel, against the plain
+     version, timed beside its bound and the plain version's time;
+  13. the 36-view headline model of ``python -m vln_ver_tpu_torch.bench``
+     (VERConfig(num_cams=36, dtype=bfloat16), seed-0 weights, the example
+     inputs of numpy seed 0): the capacity derived from the rig (192);
+     one forward at batch 8 of the sparse and of the dense lift, 3
      forward launches each (nq 192 and 900) and no backward, and 2
      launches of the occupancy MLP kernel each, sca_overflow 0; the same
-     weights in fp32 at batch 8: the sparse lift's bev_embed
-     within 1e-5 of the dense lift's; one fp32 only_bev forward at batch 1
-     against the CPU (rtol 1e-4, atol 1e-4).  Then ``bench.main`` with its
-     defaults (the forward at batch 8 and 4, the e2e dump and the image
-     legs over 32 synthetic viewpoints, the HDF5 files in an in-memory
-     stand-in for h5py), its launch counts read around it, its JSON line
-     printed; ``check_determinism`` at its defaults (36 cameras, bf16,
-     batch 2, 3 runs: 3 forward launches a run, the differing outputs
-     reported, not failed on); ``bench_train`` in step mode (36 cameras,
-     bf16, batch 2, 2 timed iterations a sample: a finite loss, 3 forward
-     and 3 backward launches a step).  The occupancy MLP kernel's launches
-     are counted around each of them beside the calls of the head's
-     even-cell path (``occ_launches``): 2 a call in ``bench.main`` and
-     ``check_determinism``, none in ``bench_train`` (autograd on).
-     Then the ``kernels`` line and the script's total time.
+     weights in fp32 at batch 8: the sparse lift's bev_embed within 1e-5
+     of the dense lift's; one fp32 only_bev forward at batch 1 against
+     the CPU (rtol 1e-4, atol 1e-4).  Then ``check_determinism`` at its
+     defaults (36 cameras, bf16, batch 2, 3 runs: 3 forward and 2
+     occupancy MLP launches a run, the differing outputs reported, not
+     failed on).  Then, untimed: one bf16 train step at batch 2 (3
+     forward and 3 backward launches, no occupancy MLP launch, a finite
+     loss), and 16 viewpoints of uint8 views through a bf16 ViT-B/16 and
+     the sparse lift, ``dump_volumes`` into ``verbench.h5mem`` at batch 8
+     (6 forward launches, nothing else, no overflow, every volume
+     finite).  Then the ``kernels`` line (each kernel's times alone,
+     bounds and errors) and the script's total time.
 The last line is the ``{"ok": true, "device": ...}`` JSON object.
 """
 
@@ -270,6 +243,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import os
 import re
 import shutil
@@ -279,12 +253,17 @@ import time
 
 import numpy as np
 
+from verbench.flops import (HBM_BYTES_PER_S, PEAK_FLOP_PER_S, deform_bytes,
+                            deform_least_s, upsampler_flop)
+from verbench.h5mem import MemoryH5
+
 REPO = os.path.dirname(os.path.abspath(__file__))
 T_START = time.perf_counter()
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, fp32 non-tensor FLOP/s
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOP_PER_S = 67e12
+# H100 SXM peaks (the benchmark's, verbench/flops.py): fp32 outside the
+# tensor cores, bf16 on them
+FP32_FLOP_PER_S = PEAK_FLOP_PER_S["float32"]
+BF16_FLOP_PER_S = PEAK_FLOP_PER_S["bfloat16"]
 # shared memory: 128 B per clock per SM, 132 SMs, 1.98 GHz boost clock
 SMEM_BYTES_PER_S = 128 * 132 * 1.98e9
 
@@ -297,17 +276,11 @@ VIT_PATCH, VIT_LAYERS, VIT_HEADS = 16, 12, 12
 # phase 6: synthetic viewpoints with ground truth, eval batch
 EVAL_SCANS, EVAL_VPS_PER_SCAN, EVAL_BATCH = 2, 4, 2
 # phase 7: train steps at batch samples_per_gpu over phase 6's viewpoints
-TRAIN_WARMUP, TRAIN_STEPS = 2, 6
+TRAIN_STEPS = 6
 # phase 8: the synthetic VLN environment, the policy's vocabulary and text
 # length (tools/test_vln.py's R2R model), the lockstep eval batch
 AGENT_SCANS, AGENT_NODES, AGENT_EPISODES = 3, 9, 16
 AGENT_VOCAB, AGENT_TEXT_LEN, AGENT_BATCH = 4000, 80, 8
-# phase 8's rates: the same graphs and volumes with this many episodes (the
-# first AGENT_EPISODES those of the checks), passes at batch 1 and
-# AGENT_BATCH interleaved, each pass a window of seconds
-AGENT_RATE_EPISODES, AGENT_RATE_PASSES = 256, 2
-# R2R's reference paths: 4 to 6 edges (Anderson et al., CVPR 2018, sec. 3)
-R2R_PATH_EDGES = "4-6"
 # phase 9: the agent's training on phase 8's environment and volumes; the
 # JAX CLIs' defaults (pretrain batch 16 at lr 5e-5; DAgger with student
 # actions half the time at lr 1e-4), lockstep rollouts of 8 episodes,
@@ -315,17 +288,14 @@ R2R_PATH_EDGES = "4-6"
 PRETRAIN_BATCH, PRETRAIN_LR = 16, 5e-5
 DAGGER_SAMPLE_PROB, DAGGER_EPISODE_BATCH, DAGGER_UPDATE_BATCH = 0.5, 8, 8
 DAGGER_LR = 1e-4
-AGENT_TRAIN_WARMUP, AGENT_TRAIN_UPDATES = 2, 8
+AGENT_TRAIN_UPDATES = 4
 # phase 10: the server (the JAX tool's default batch_max) on phase 4's
 # viewpoints and 4d's views; its --occupancy run at vocc.py width
 SERVE_BATCH, SERVE_FEATURE_REQUESTS, SERVE_IMAGE_REQUESTS = 8, 12, 4
 SERVE_OCC_BATCH = 2
-# phase 10's rates: a backlog of requests drawn from phase 4's viewpoints,
-# a quarter of them image requests, then lone requests of each kind
-SERVE_RATE_REQUESTS, SERVE_RATE_IMAGE_SHARE, SERVE_LONE = 256, 0.25, 3
 # phase 11: the temporal model's history (frames before the current one)
 # and batch; its CPU hold runs the first TEMPORAL_CPU_ROWS viewpoints (each
-# viewpoint's computation is its own); train steps timed at batch 1
+# viewpoint's computation is its own)
 TEMPORAL_FRAMES, TEMPORAL_BATCH, TEMPORAL_CPU_ROWS = 3, 4, 2
 # phase 12: BEVFormer-2D over synthetic nuScenes scenes of 3 frames, a yaw
 # change of this many degrees a frame (so rotate_prev_bev turns the grid)
@@ -340,12 +310,6 @@ GATHER_SHAPES = [
     ("BEVFormer-base TSA", 2, ((200, 200),), 32, 40000, 4),
     ("BEVFormer-base decoder", 1, ((200, 200),), 32, 900, 4),
 ]
-# H100 SXM fp32 peak outside the tensor cores and HBM bandwidth (NVIDIA
-# data sheet)
-FP32_FLOP_PER_S, HBM_BYTES_PER_S = 67e12, 3.35e12
-# phases 11 and 12 time each rate over back-to-back calls of the warm
-# path, inputs already on the card, for at least this many seconds
-RATE_WINDOW_S = 1.0
 # phases 3 and 5: the launches of phases 11 and 12 at full width:
 # (name, bs, H, W, d, nq, P); the temporal model's SCA has the main shape
 PATH_SHAPES = [
@@ -357,14 +321,14 @@ PATH_SHAPES = [
     ("bev2d TSA-2D B=4", 8, 15, 15, 32, 225, 4),
     ("bev2d decoder B=4", 4, 15, 15, 32, 100, 4),
 ]
-# phase 13: the 36-view headline (vln_ver_tpu_torch.bench) at batch 8 with
-# batch 4 beside it; the sparse lift's capacity the rig gives
+# phase 13: the 36-view headline (vln_ver_tpu_torch.bench) at batch 8; the
+# sparse lift's capacity the rig gives
 HEADLINE_CAMS, HEADLINE_BATCH, HEADLINE_QCAP = 36, 8, 192
 # phases 3 and 5: its launches, (name, bs, nq, backward too): the forward
-# at batch 8, both kernels at bench_train's and check_determinism's batch
-# 2, each over the dense lift's 900 queries and the sparse lift's 192; the
-# plain version runs over blocks of this many slots (its gather of fp32
-# samples is 6.4 GB at 288 slots, before the taps)
+# at batch 8, both kernels at the 36-view training batch 2, each over the
+# dense lift's 900 queries and the sparse lift's 192; the plain version
+# runs over blocks of this many slots (its gather of fp32 samples is 6.4
+# GB at 288 slots, before the taps)
 HEADLINE_SHAPES = [
     ("36-view B=8 nq=900", 288, 900, False),
     ("36-view B=8 nq=192", 288, HEADLINE_QCAP, False),
@@ -380,8 +344,6 @@ OCC_MLP_SHAPES = [(1, 60, 60, 35, 128, 16), (8, 60, 60, 35, 128, 16)]
 # roundings of the tap and phase sums against one)
 UPSAMPLER_BATCHES = (8, 2)
 UPSAMPLER_BF16_REL = 2e-2
-# H100 SXM bf16 tensor-core peak, dense (NVIDIA data sheet)
-BF16_FLOP_PER_S = 989e12
 
 
 def fail(msg: str) -> None:
@@ -432,37 +394,21 @@ def valid_taps(loc, spatial_hw):
     return taps
 
 
-def deform_bound(value, loc, weights, spatial_hw):
-    """Least time for the function on these inputs: the bytes it must
-    move (each input read once, the output written once) over the HBM
-    rate vs its fp32 operations (a multiply-add per channel for each tap
-    that lands inside the map, counted on this data) over the fp32 rate."""
+def deform_bound(value, loc, spatial_hw, backward=False):
+    """(least ms, what bounds it) of one launch on these inputs, as the
+    benchmark counts it (``verbench.flops.deform_least_s``): the bytes it
+    must move over the HBM rate against its fp32 multiply-adds, one a
+    channel for each tap that lands inside the map (two in the backward,
+    which also writes the inputs' gradients), counted on this data."""
+    import types
     bs, hw, heads, d = value.shape
-    nq = loc.shape[1]
-    nbytes = (value.numel() * value.element_size() + loc.numel() * 4
-              + weights.numel() * 4 + bs * nq * heads * d
-              * value.element_size())
-    flops = valid_taps(loc, spatial_hw) * d * 2
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
-
-
-def deform_bwd_bound(value, loc, weights, spatial_hw):
-    """The same for the backward: value, locations, weights and the output
-    gradient read once, dvalue, dlocations and dweights written once, vs
-    two fp32 multiply-adds per channel for each tap inside the map (one
-    into dvalue, one for the tap's dot product with the output gradient,
-    from which dweights and dlocations follow)."""
-    bs, hw, heads, d = value.shape
-    nq = loc.shape[1]
-    elt = value.element_size()
-    nbytes = (2 * value.numel() * elt + 2 * loc.numel() * 4
-              + 2 * weights.numel() * 4 + bs * nq * heads * d * elt)
-    flops = valid_taps(loc, spatial_hw) * d * 4
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    launch = types.SimpleNamespace(
+        dtype=str(value.dtype).split(".")[-1], num_cams=bs, feat_h=hw,
+        feat_w=1, embed_dims=heads * d, num_heads=heads, head_dim=d,
+        lift_queries=loc.shape[1], sca_num_points=loc.shape[4])
+    least = deform_least_s(launch, 1, valid_taps(loc, spatial_hw), backward)
+    by_bytes = deform_bytes(launch, 1, backward) / HBM_BYTES_PER_S >= least
+    return least * 1e3, "bytes" if by_bytes else "operations"
 
 
 def plain_forward(value, spatial_hw, loc, weights, block=PLAIN_SLOTS):
@@ -522,20 +468,31 @@ def time_ms(fn, iters=200, warmup=20):
     return start.elapsed_time(end) / iters
 
 
-def timed_window(fn, min_s=RATE_WINDOW_S):
-    """Calls the warm ``fn`` back to back, synchronising after each call,
-    until at least ``min_s`` seconds of wall time have passed; returns
-    (calls, seconds)."""
-    import torch
-    torch.cuda.synchronize()
-    calls, t0 = 0, time.perf_counter()
-    while True:
-        fn()
-        torch.cuda.synchronize()
-        calls += 1
-        secs = time.perf_counter() - t0
-        if secs >= min_s:
-            return calls, secs
+@contextlib.contextmanager
+def planned(every=False):
+    """Inside the block, the query count of the latest launch of the
+    forward and of the backward deformable-attention kernel, as each
+    kernel plans it: yields {"fwd": nq, "bwd": nq}, None until one
+    launches; with ``every``, the list of every launch's.  A CUDA graph's
+    replay plans nothing."""
+    from unittest import mock
+
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    last = {"fwd": [], "bwd": []} if every else {"fwd": None, "bwd": None}
+
+    def watched(key, plan):
+        def call(bs, heads, nq, *rest):
+            if every:
+                last[key].append(nq)
+            else:
+                last[key] = nq
+            return plan(bs, heads, nq, *rest)
+        return call
+
+    with mock.patch.object(KERNEL, "plan", watched("fwd", KERNEL.plan)), \
+            mock.patch.object(KERNEL_BWD, "plan",
+                              watched("bwd", KERNEL_BWD.plan)):
+        yield last
 
 
 def time_graph_ms(fn, launches=50, replays=20):
@@ -563,106 +520,6 @@ def time_graph_ms(fn, launches=50, replays=20):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * launches)
-
-
-def breakdown(run_main_path, bev_only, feats, w2p, shift, ver, card):
-    """Where the main path's time goes: each stage synchronised and timed
-    on the host clock, then one unsynchronised run under torch.profiler
-    for the device's busy share and its largest kernels."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from vln_ver_tpu_torch.ver_writer import volumes_from_bev
-
-    dev = torch.device("cuda")
-    stages = dict(upload=0.0, forward=0.0, fetch=0.0, layout=0.0)
-    for b0 in range(0, N_VIEWPOINTS, BATCH):
-        sl = slice(b0, b0 + BATCH)
-        t0 = time.perf_counter()
-        args = (torch.from_numpy(feats[sl]).to(dev),
-                torch.from_numpy(w2p[sl]).to(dev),
-                torch.from_numpy(shift[sl]).to(dev))
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        bev, _ = bev_only(*args)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        host = bev.float().cpu().numpy()
-        t3 = time.perf_counter()
-        volumes_from_bev(host, ver)
-        t4 = time.perf_counter()
-        for k, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2, t4 - t3)):
-            stages[k] += dt
-    total = sum(stages.values())
-    print("main path stages (synchronised, host clock, "
-          f"{N_VIEWPOINTS} volumes): " + ", ".join(
-              f"{k} {1e3 * v:.3f} ms ({100 * v / total:.1f}%)"
-              for k, v in stages.items()) + f" [{card}]")
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_main_path()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")]
-    dev_us = sum(e.self_device_time_total for e in events)
-    if not dev_us:
-        print("device busy share: not measured (the profiler recorded no "
-              "device time)")
-        return
-    print(f"device busy share of the main path: "
-          f"{100 * dev_us / 1e6 / wall:.1f}% of {1e3 * wall:.3f} ms wall "
-          f"(profiled run) [{card}]")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
-              f"x{e.count:<4d} {e.key[:90]}")
-
-
-def stage_times(stages, run):
-    """Device ms of each named group of modules over one call of ``run``:
-    a CUDA event recorded before and after every call of those modules,
-    the spans summed per group."""
-    import torch
-    spans = {name: [] for name in stages}
-    handles = []
-    for name, modules in stages.items():
-        def pre(mod, args, name=name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            spans[name].append([ev, None])
-
-        def post(mod, args, out, name=name):
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            spans[name][-1][1] = ev
-
-        for m in modules:
-            handles += [m.register_forward_pre_hook(pre),
-                        m.register_forward_hook(post)]
-    try:
-        run()
-    finally:
-        for h in handles:
-            h.remove()
-    torch.cuda.synchronize()
-    return {name: sum(a.elapsed_time(b) for a, b in evs)
-            for name, evs in spans.items()}
-
-
-def upsampler_flop(c, z, h, w, stages):
-    """(factorised, dense) FLOP of one viewpoint through the upsampler.
-    The factorisation runs 25 (y, x) taps for each cell of stage 1's even
-    grid and, summed over the four parity slices, for each cell of a later
-    stage's input grid, over the in-range z plane pairs (3z - 4 for z > 2:
-    the middle tap on every plane, the outer two on z - 2 each); the dense
-    transposed convolution runs all 75 taps of every input position."""
-    pairs = 3 * z - 4 if z > 2 else z
-    cells = h * w * (1 + sum(4 ** (s - 2) for s in range(2, stages + 1)))
-    positions = z * h * w * sum(4 ** s for s in range(stages))
-    return (2 * c * c * 25 * pairs * cells, 2 * c * c * 75 * positions)
 
 
 def rel_l2(got, ref):
@@ -855,30 +712,6 @@ def branch_float64(branch, x):
         return h @ branch[-1].weight.double().t() + branch[-1].bias.double()
 
 
-@contextlib.contextmanager
-def occ_launches():
-    """Counts, inside the block, the occupancy MLP kernel's launches and the
-    calls of the head's even-cell occupancy path
-    (``VoxelFormerOccupancyHead._bias_aware_logits``, wrapped for the
-    block): yields a dict whose ``calls`` and ``launches`` hold them."""
-    from vln_ver_tpu_torch.models.head import VoxelFormerOccupancyHead
-    from vln_ver_tpu_torch.ops.occ_mlp import KERNEL as OCC
-    inner = VoxelFormerOccupancyHead._bias_aware_logits
-    got = {"calls": 0, "launches": 0}
-
-    def counted(self, *args, **kwargs):
-        got["calls"] += 1
-        return inner(self, *args, **kwargs)
-
-    VoxelFormerOccupancyHead._bias_aware_logits = counted
-    OCC.launches = 0
-    try:
-        yield got
-    finally:
-        VoxelFormerOccupancyHead._bias_aware_logits = inner
-        got["launches"] = OCC.launches
-
-
 def occ_mlp_bound_ms(b, h2, w2, oz, d, n):
     """Least time of the occupancy MLP and its lattice: the bf16 rows read
     once and the fp32 lattice written once, or the two bf16 products at the
@@ -964,17 +797,13 @@ def occ_mlp_shapes(card):
     return numbers
 
 
-def full_forward_and_eval(model, ver, card):
-    """Phase 6; returns the kernel's launches over the eval run and the
-    synthetic viewpoints."""
+def full_forward_and_eval(model, ver):
+    """Phase 6; returns the synthetic viewpoints."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from vln_ver_tpu_torch.config import build_ver_config, load_config
     from vln_ver_tpu_torch.data import synthetic_samples
-    from vln_ver_tpu_torch.evaluation.runner import (decode_outputs,
-                                                     evaluate_model,
-                                                     occupancy_hists)
+    from vln_ver_tpu_torch.evaluation.runner import evaluate_model
     from vln_ver_tpu_torch.models import build_model
     from vln_ver_tpu_torch.occupancy import decode_occupancy
     from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
@@ -998,20 +827,10 @@ def full_forward_and_eval(model, ver, card):
     print(f"eval data: {n} synthetic viewpoints, occupancy {occ_dims}, in "
           f"{time.perf_counter() - t0:.2f}s")
 
-    def run_eval(subset):
-        return evaluate_model(model, subset, occ_thresholds=(0.25,),
-                              batch_size=EVAL_BATCH, classes=classes)
-
-    run_eval(samples[:EVAL_BATCH])    # warm-up: allocator, cuBLAS, cuDNN
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = KERNEL_BWD.launches = 0
-    t0 = time.perf_counter()
-    metrics = run_eval(samples)
-    torch.cuda.synchronize()
-    eval_s = time.perf_counter() - t0
+    metrics = evaluate_model(model, samples, occ_thresholds=(0.25,),
+                             batch_size=EVAL_BATCH, classes=classes)
     launches, bwd_launches = KERNEL.launches, KERNEL_BWD.launches
-    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = -(-n // EVAL_BATCH)
     if launches != ver.encoder_layers * n_batches:
         fail(f"deform_attn_2d launched {launches} times in the eval run, "
@@ -1031,10 +850,8 @@ def full_forward_and_eval(model, ver, card):
     if not any(k.startswith("mAP_") for k in metrics):
         fail("the eval run computed no detection mAP")
     print("eval metrics: " + json.dumps(metrics, sort_keys=True))
-    print(f"eval: {n} viewpoints in {eval_s:.4f}s = {n / eval_s:.3f} "
-          f"viewpoints/s at batch {EVAL_BATCH} (features on the host -> "
-          f"metrics), peak device memory {peak_mib:.1f} MiB, deform "
-          f"launches {launches} [{card}]")
+    print(f"eval: {n} viewpoints at batch {EVAL_BATCH} (features on the "
+          f"host -> metrics), deform launches {launches}")
 
     def batch_inputs(sl, device):
         return [torch.from_numpy(np.stack([s[k] for s in samples[sl]]))
@@ -1091,71 +908,12 @@ def full_forward_and_eval(model, ver, card):
           f"equal (need >= 99.99%); the CPU forward took {cpu_s:.2f}s")
     if share < 0.9999:
         fail("decoded occupancy labels of card and CPU differ")
-
-    # where the time goes: device time per stage at batch EVAL_BATCH
-    head = model.pts_bbox_head
-    inputs = batch_inputs(slice(0, EVAL_BATCH), dev)
-    gt = torch.from_numpy(np.stack(
-        [s["occ_dense"] for s in samples[:EVAL_BATCH]])).to(dev)
-    weight = torch.from_numpy(np.stack(
-        [s["occ_visible"] for s in samples[:EVAL_BATCH]])).to(dev)
-    stages = {"encoder": [head.transformer.encoder],
-              "decoder with branches": [head.transformer.decoder,
-                                        *head.cls_branches],
-              "upsampler": [head.up_sample],
-              "occupancy projection and MLP": [head.occ_proj,
-                                               head.occ_branches]}
-
-    last = {}
-
-    def one_batch():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        with torch.inference_mode():
-            ev[0].record()
-            o = model(*inputs)
-            ev[1].record()
-            decode_outputs(o, ver)
-            occupancy_hists(o["occupancy_preds"], gt, weight, (0.25,), ver)
-            ev[2].record()
-        torch.cuda.synchronize()
-        last["forward"] = ev[0].elapsed_time(ev[1])
-        last["decode and histogram"] = ev[1].elapsed_time(ev[2])
-
-    one_batch()
-    times = stage_times(stages, one_batch)
-    times["decode and histogram"] = last["decode and histogram"]
-    print(f"device time per batch of {EVAL_BATCH} (CUDA events): forward "
-          f"{last['forward']:.3f} ms; " + ", ".join(
-              f"{k} {v:.3f} ms" for k, v in times.items()) + f" [{card}]")
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run_eval(samples[:2 * EVAL_BATCH])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")]
-    dev_us = sum(e.self_device_time_total for e in events)
-    if not dev_us:
-        print("eval device busy share: not measured (the profiler recorded "
-              "no device time)")
-        return launches, bwd_launches, samples
-    print(f"device busy share of the eval path: "
-          f"{100 * dev_us / 1e6 / wall:.1f}% of {1e3 * wall:.3f} ms wall "
-          f"({2 * EVAL_BATCH} viewpoints, profiled run) [{card}]")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
-              f"x{e.count:<4d} {e.key[:90]}")
-    return launches, bwd_launches, samples
+    return samples
 
 
 def training(ver, samples, card):
-    """Phase 7; returns the forward and backward kernel launches over the
-    timed train steps, and those of the remat and capacity steps."""
+    """Phase 7."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from vln_ver_tpu_torch.config import build_train_config, load_config
     from vln_ver_tpu_torch.data.mp3d import collate
@@ -1173,24 +931,12 @@ def training(ver, samples, card):
     step_fn = make_train_step(ver, tc)
     batches = [collate(samples[i:i + batch])
                for i in range(0, len(samples) - batch + 1, batch)]
-    need = TRAIN_WARMUP + TRAIN_STEPS
-    batches = (batches * -(-need // len(batches)))[:need]
-
-    def run(host_batches):
-        return [step_fn(state, b, seed=1) for b in staged_batches(
-            host_batches, lambda b: to_device(b, dev))]
-
-    run(batches[:TRAIN_WARMUP])   # warm-up: allocator, cuBLAS, cuDNN
-    torch.cuda.synchronize()
+    batches = (batches * -(-TRAIN_STEPS // len(batches)))[:TRAIN_STEPS]
     before = {n: p.detach().clone() for n, p in model.named_parameters()}
-    torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = KERNEL_BWD.launches = 0
-    t0 = time.perf_counter()
-    metrics = run(batches[TRAIN_WARMUP:])
-    torch.cuda.synchronize()
-    train_s = time.perf_counter() - t0
+    metrics = [step_fn(state, b, seed=1) for b in staged_batches(
+        batches, lambda b: to_device(b, dev))]
     fwd, bwd = KERNEL.launches, KERNEL_BWD.launches
-    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     want = ver.encoder_layers * TRAIN_STEPS
     if fwd != want or bwd != want:
         fail(f"the train steps launched deform_attn_2d {fwd} and its "
@@ -1219,77 +965,9 @@ def training(ver, samples, card):
     print("train losses by step: " + json.dumps(
         [{k: m[k] for k in ("loss", "loss_cls", "loss_bbox",
                             "loss_occupancy", "grad_norm")} for m in host]))
-    print(f"train: {TRAIN_STEPS} steps in {train_s:.4f}s = "
-          f"{TRAIN_STEPS / train_s:.3f} steps/s, "
-          f"{TRAIN_STEPS * batch / train_s:.3f} viewpoints/s at batch "
-          f"{batch} ({tc.matcher} matcher), peak device memory "
-          f"{peak_mib:.1f} MiB, {moved} of {len(after)} parameters moved, "
-          f"deform launches {fwd} forward + {bwd} backward [{card}]")
-
-    # the real step's stages, timed with CUDA events recorded by hooks on
-    # the calls step_fn makes: the model's forward, the optimizer's
-    # zero_grad (just before the backward) and apply_gradients
-    ev = {}
-
-    def mark(name):
-        ev[name] = torch.cuda.Event(enable_timing=True)
-        ev[name].record()
-
-    def wrap(obj, attr, before, after=None):
-        inner = getattr(obj, attr)
-
-        def call(*a, **k):
-            mark(before)
-            out = inner(*a, **k)
-            if after:
-                mark(after)
-            return out
-        setattr(obj, attr, call)
-
-    hooks = [model.register_forward_pre_hook(lambda *_: mark("start")),
-             model.register_forward_hook(lambda *_: mark("forward"))]
-    wrap(state.optimizer, "zero_grad", "losses")
-    wrap(state, "apply_gradients", "backward", "update")
-
-    def stage_step(b):
-        step_fn(state, b, seed=1)
-        torch.cuda.synchronize()
-        names = ("start", "forward", "losses", "backward", "update")
-        return [ev[names[i]].elapsed_time(ev[names[i + 1]])
-                for i in range(4)]
-
-    b = to_device(batches[0], dev)
-    stage_step(b)
-    spans = stage_step(b)
-    for h in hooks:
-        h.remove()
-    del state.optimizer.zero_grad, state.apply_gradients
-    print(f"train step device time at batch {batch} (elapsed between CUDA "
-          f"events in step_fn): forward {spans[0]:.3f} ms, losses and "
-          f"matching {spans[1]:.3f} ms, backward {spans[2]:.3f} ms, clip and "
-          f"AdamW {spans[3]:.3f} ms, total {sum(spans):.3f} ms [{card}]")
-    norm_cost(model, "the vocc.py model", card)
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        step_fn(state, b, seed=1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")]
-    dev_us = sum(e.self_device_time_total for e in events)
-    if dev_us:
-        print(f"device busy share of a train step: "
-              f"{100 * dev_us / 1e6 / wall:.1f}% of {1e3 * wall:.3f} ms wall "
-              f"(profiled run) [{card}]")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-            print(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
-                  f"x{e.count:<4d} {e.key[:90]}")
-    else:
-        print("train device busy share: not measured (the profiler "
-              "recorded no device time)")
+    print(f"train: {TRAIN_STEPS} steps at batch {batch} ({tc.matcher} "
+          f"matcher), {moved} of {len(after)} parameters moved, deform "
+          f"launches {fwd} forward + {bwd} backward")
 
     # one step on the card against one on the CPU: the same weights and
     # batch, dropout off, the exact host matcher, on the 0.2 m grid (the
@@ -1297,42 +975,7 @@ def training(ver, samples, card):
     check = dataclasses.replace(ver, occupancy_size=(0.2, 0.2, 0.2),
                                 dropout_rate=0.0)
     step_card_vs_cpu(check, tc, "vocc.py widths", card)
-    return fwd, bwd, remat_and_capacity(ver, tc, batches[0], card)
-
-
-def norm_cost(model, what, card):
-    """The clip's global norm as the trainers take it
-    (``train.state.global_norm``: each tensor's norm in float64) against
-    the fp32 form, on gradient-shaped tensors of ``model``'s parameters:
-    ms a call (CUDA events over 50 calls) and the CUDA kernels one call
-    launches (the fused multi-tensor route launches a few for all the
-    tensors, a per-tensor route at least one a tensor)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    from vln_ver_tpu_torch.train.state import global_norm
-    gen = torch.Generator("cuda").manual_seed(0)
-    grads = [torch.randn(p.shape, device="cuda", generator=gen)
-             for p in model.parameters() if p.requires_grad]
-    out = {}
-    for name, fn in (
-            ("float64", lambda: global_norm(grads)),
-            ("fp32", lambda: torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads))))):
-        ms = time_ms(fn, iters=50, warmup=5)
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        kernels = sum(e.count for e in prof.key_averages()
-                      if str(getattr(e, "device_type", "")).endswith("CUDA"))
-        out[name] = (ms, kernels or "not recorded (no device event)")
-    a, b = float(global_norm(grads)), float(torch.linalg.vector_norm(
-        torch.stack(torch._foreach_norm(grads))))
-    print(f"global norm of {what}'s {len(grads)} gradient tensors: float64 "
-          f"sums {out['float64'][0]:.4f} ms, kernels {out['float64'][1]}; "
-          f"fp32 sums {out['fp32'][0]:.4f} ms, kernels {out['fp32'][1]}; "
-          f"relative difference {abs(a - b) / b:.3e} [{card}]")
-    return out
+    remat_and_capacity(ver, tc, batches[0], card)
 
 
 def off_lattice(model, seed=5):
@@ -1506,15 +1149,13 @@ def card_step(cfg, tc, host_batch, record=None, pin=None, mesh=None,
         keep.append(state)
     batch = to_device(host_batch, torch.device("cuda"))
     KERNEL.launches = KERNEL_BWD.launches = 0
-    KERNEL.last_nq = KERNEL_BWD.last_nq = None
     with mock.patch.object(objective, "_match", match), \
-            relu_masks(model, record=record, pin=pin):
+            relu_masks(model, record=record, pin=pin), planned() as nq:
         metrics = make_train_step(cfg, tc, mesh)(state, batch, seed=1)
     torch.cuda.synchronize()
     return (torch.cat(matches), {k: float(v) for k, v in metrics.items()},
             {n: g.cpu() for n, g in grads_by_name(model).items()},
-            (KERNEL.launches, KERNEL_BWD.launches),
-            (KERNEL.last_nq, KERNEL_BWD.last_nq))
+            (KERNEL.launches, KERNEL_BWD.launches), (nq["fwd"], nq["bwd"]))
 
 
 def hold_step(name, got, ref, rtol, grad_tol, card):
@@ -1547,7 +1188,7 @@ def hold_step(name, got, ref, rtol, grad_tol, card):
 
 
 def remat_and_capacity(ver, tc, host_batch, card):
-    """Phase 7's remat and capacity steps; returns their launches.
+    """Phase 7's remat and capacity steps.
 
     Every step here runs with cuDNN's deterministic algorithms: the
     upsampler's backward convolutions otherwise add in a varying order,
@@ -1558,7 +1199,7 @@ def remat_and_capacity(ver, tc, host_batch, card):
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        return _remat_and_capacity(ver, tc, host_batch, card)
+        _remat_and_capacity(ver, tc, host_batch, card)
     finally:
         torch.backends.cudnn.deterministic = saved
 
@@ -1589,46 +1230,36 @@ def _remat_and_capacity(ver, tc, host_batch, card):
              f"({layers}, {layers}) at nq {SPARSE_K}")
     hold_step(f"train step with sca_query_capacity={SPARSE_K} vs dense "
               f"(card)", sparse, dense, 1e-4, 1e-3, card)
-    return dict(fwd_remat=remat[3][0], bwd_remat=remat[3][1],
-                fwd_capacity=sparse[3][0], bwd_capacity=sparse[3][1])
 
 
 def drive(bev_only, host_batches, ver, device):
     """Upload each batch of host arrays, run ``bev_only`` on them and bring
-    the volumes back in the dump layout: (volumes (N, C, Z, H, W), seconds,
-    the largest sca_overflow)."""
+    the volumes back in the dump layout: (volumes (N, C, Z, H, W), the
+    largest sca_overflow)."""
     import torch
 
     from vln_ver_tpu_torch.ver_writer import volumes_from_bev
     vols, overflow = [], 0
-    t0 = time.perf_counter()
     for arrays in host_batches:
         bev, ovf = bev_only(*(torch.from_numpy(a).to(device)
                               for a in arrays))
         overflow = max(overflow, int(ovf))
         vols.append(volumes_from_bev(bev.float().cpu().numpy(), ver))
-    if torch.device(device).type == "cuda":
-        torch.cuda.synchronize()
-    return np.concatenate(vols), time.perf_counter() - t0, overflow
+    return np.concatenate(vols), overflow
 
 
 def counted(bev_only, host_batches, ver):
-    """One warm-up run, then one run on the card with the kernels' counts
-    set to 0 just before it; returns (volumes, seconds, overflow, forward
-    launches, nq of the last launch, peak device MiB)."""
-    import torch
-
+    """``drive`` on the card with the kernels' counts set to 0 just before
+    it; fails on a backward launch.  Returns (volumes, overflow, forward
+    launches, nq of the last launch)."""
     from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
-    drive(bev_only, host_batches, ver, "cuda")
-    torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = KERNEL_BWD.launches = 0
-    KERNEL.last_nq = None
-    vols, secs, ovf = drive(bev_only, host_batches, ver, "cuda")
+    with planned() as nq:
+        vols, ovf = drive(bev_only, host_batches, ver, "cuda")
     if KERNEL_BWD.launches:
         fail(f"an inference path launched the backward kernel "
              f"{KERNEL_BWD.launches} times")
-    return (vols, secs, ovf, KERNEL.launches, KERNEL.last_nq,
-            torch.cuda.max_memory_allocated() / 2 ** 20)
+    return vols, ovf, KERNEL.launches, nq["fwd"]
 
 
 def batches_of(*arrays):
@@ -1636,9 +1267,8 @@ def batches_of(*arrays):
             for b0 in range(0, N_VIEWPOINTS, BATCH)]
 
 
-def sparse_lift(model, ver, feats, w2p, shift, dense_vols, dense_rate,
-                card):
-    """Phase 4b; returns its numbers for the kernels line."""
+def sparse_lift(model, ver, feats, w2p, shift, dense_vols, card):
+    """Phase 4b; returns its kernel times for the kernels line."""
     import torch
 
     from vln_ver_tpu_torch.geometry import max_visible_queries
@@ -1656,8 +1286,9 @@ def sparse_lift(model, ver, feats, w2p, shift, dense_vols, dense_rate,
     cap = dataclasses.replace(ver, sca_query_capacity=SPARSE_K)
     sparse = build_model(cap, "cuda", seed=0)
     sparse.load_state_dict(model.state_dict(), strict=True)
-    vols, secs, ovf, launches, nq, peak = counted(
+    vols, ovf, launches, nq = counted(
         make_bev_only(sparse), batches_of(feats, w2p, shift), ver)
+    del sparse
     n_batches = -(-N_VIEWPOINTS // BATCH)
     if ovf:
         fail(f"sparse lift sca_overflow={ovf}")
@@ -1671,14 +1302,8 @@ def sparse_lift(model, ver, feats, w2p, shift, dense_vols, dense_rate,
           f"(rtol=1e-5, atol=1e-5) {'ok' if ok else 'FAIL'}")
     if not ok:
         fail("the sparse lift's volumes disagree with the dense lift's")
-    weights_mib = sum(p.numel() * p.element_size()
-                      for p in sparse.parameters()) / 2 ** 20
-    print(f"sparse lift: {N_VIEWPOINTS} volumes in {secs:.4f}s = "
-          f"{N_VIEWPOINTS / secs:.2f} volumes/s at batch {BATCH} (dense "
-          f"{dense_rate:.2f} in phase 4), peak device memory {peak:.1f} "
-          f"MiB ({weights_mib:.1f} MiB of it the dense model's weights, "
-          f"kept for phase 6), deform launches {launches} at nq={nq} "
-          f"[{card}]")
+    print(f"sparse lift: {N_VIEWPOINTS} volumes at batch {BATCH}, deform "
+          f"launches {launches} at nq={nq}")
     # the kernel at the sparse lift's shape against the dense lift's
     hw, heads, d, P = ver.feat_h * ver.feat_w, ver.num_heads, \
         ver.head_dim, ver.sca_num_points
@@ -1689,20 +1314,19 @@ def sparse_lift(model, ver, feats, w2p, shift, dense_vols, dense_rate,
                                       P, torch.float32, 30, "cuda")
             times[n] = (time_graph_ms(lambda: KERNEL(
                 v, ((ver.feat_h, ver.feat_w),), loc, w)),
-                *deform_bound(v, loc, w, (ver.feat_h, ver.feat_w)))
+                *deform_bound(v, loc, (ver.feat_h, ver.feat_w)))
     (ms_k, bound_k, by_k), (ms_d, _, _) = times[SPARSE_K], times[ver.bev_num]
     print(f"deform_attn_2d B={BATCH} fp32 at nq={SPARSE_K}: {ms_k:.4f} ms "
           f"(graph), bound {bound_k:.4f} ms ({by_k}), "
           f"{100 * bound_k / ms_k:.1f}% of bound; at nq={ver.bev_num}: "
           f"{ms_d:.4f} ms ({ms_d / ms_k:.2f}x) [{card}]")
-    return dict(launches_dump_sparse=launches,
-                volumes_per_s_sparse=N_VIEWPOINTS / secs,
-                ms_b4_nq256=ms_k, ms_b4_nq900=ms_d,
+    return dict(ms_b4_nq256=ms_k, ms_b4_nq900=ms_d,
                 bound_ms_b4_nq256=bound_k)
 
 
-def int8_upload(model, cpu_model, ver, feats, w2p, shift, dense_vols, card):
-    """Phase 4c; returns its numbers for the kernels line."""
+def int8_upload(model, cpu_model, ver, feats, w2p, shift, dense_vols):
+    """Phase 4c; returns the largest deviation of its volumes from the fp32
+    upload's."""
     import torch
 
     from vln_ver_tpu_torch.get_occ import make_bev_only
@@ -1716,12 +1340,12 @@ def int8_upload(model, cpu_model, ver, feats, w2p, shift, dense_vols, card):
             return bev_only(dequantize_int8(q, scale, ver.dtype), m, s)
         return run
 
-    vols, secs, ovf, launches, nq, peak = counted(
+    vols, ovf, launches, _ = counted(
         int8_path(make_bev_only(model)), batches, ver)
     if ovf or launches != ver.encoder_layers * len(batches):
         fail(f"int8 path: overflow {ovf}, {launches} launches")
     t0 = time.perf_counter()
-    cpu_vols, _, _ = drive(int8_path(make_bev_only(cpu_model)), batches,
+    cpu_vols, _ = drive(int8_path(make_bev_only(cpu_model)), batches,
                            ver, "cpu")
     cpu_s = time.perf_counter() - t0
     err, ok = close(torch.from_numpy(vols), torch.from_numpy(cpu_vols),
@@ -1732,22 +1356,14 @@ def int8_upload(model, cpu_model, ver, feats, w2p, shift, dense_vols, card):
     if not ok:
         fail("the card's int8 volumes disagree with the CPU's")
     dev_fp32 = float(np.abs(vols - dense_vols).max())
-    per_vol = sum(a[:1].nbytes for a in batches[0])
-    fp32_per_vol = feats[:1].nbytes + w2p[:1].nbytes + shift[:1].nbytes
-    print(f"int8 upload: {N_VIEWPOINTS} volumes in {secs:.4f}s = "
-          f"{N_VIEWPOINTS / secs:.2f} volumes/s at batch {BATCH}, peak "
-          f"device memory {peak:.1f} MiB, deform launches {launches}; "
-          f"largest deviation from the fp32 volumes {dev_fp32:.3e} (of "
-          f"|v| <= {float(np.abs(dense_vols).max()):.3f}); upload "
-          f"{per_vol} B a volume (fp32 features: {fp32_per_vol} B) [{card}]")
-    return dict(launches_dump_int8=launches,
-                volumes_per_s_int8=N_VIEWPOINTS / secs,
-                upload_bytes_per_volume_int8=per_vol,
-                int8_max_dev_from_fp32=dev_fp32)
+    print(f"int8 upload: {N_VIEWPOINTS} volumes at batch {BATCH}, deform "
+          f"launches {launches}; largest deviation from the fp32 volumes "
+          f"{dev_fp32:.3e} (of |v| <= {float(np.abs(dense_vols).max()):.3f})")
+    return dev_fp32
 
 
-def image_path(model, ver, w2p, shift, card):
-    """Phase 4d; returns its numbers for the kernels line."""
+def image_path(model, ver, w2p, shift):
+    """Phase 4d; returns its images and volumes."""
     import torch
 
     from vln_ver_tpu_torch.get_occ import make_bev_only
@@ -1763,7 +1379,7 @@ def image_path(model, ver, w2p, shift, card):
     images = np.random.default_rng(4).integers(
         0, 256, (N_VIEWPOINTS, ver.num_cams, size, size, 3)).astype(np.uint8)
     batches = batches_of(images, w2p, shift)
-    vols, secs, ovf, launches, nq, peak = counted(
+    vols, ovf, launches, nq = counted(
         make_bev_only(model, vit), batches, ver)
     if ovf or launches != ver.encoder_layers * len(batches) \
             or nq != ver.bev_num:
@@ -1775,7 +1391,7 @@ def image_path(model, ver, w2p, shift, card):
         feats = np.concatenate([vit_feature_frontend(
             vit, torch.from_numpy(im).cuda()).cpu().numpy()
             for im, _, _ in batches])
-    two, _, _ = drive(make_bev_only(model), batches_of(feats, w2p, shift),
+    two, _ = drive(make_bev_only(model), batches_of(feats, w2p, shift),
                       ver, "cuda")
     err, ok = close(torch.from_numpy(vols), torch.from_numpy(two), 1e-5,
                     1e-5)
@@ -1795,29 +1411,18 @@ def image_path(model, ver, w2p, shift, card):
           f"{'ok' if ok else 'FAIL'}; the CPU took {cpu_s:.2f}s")
     if not ok:
         fail("the card's ViT features disagree with the CPU's")
-    x = torch.from_numpy(images[:BATCH]).cuda()
-    with torch.inference_mode():
-        vit_ms = time_ms(lambda: vit_feature_frontend(vit, x), iters=10,
-                         warmup=2)
-    per_vol = sum(a[:1].nbytes for a in batches[0])
-    print(f"image path: {N_VIEWPOINTS} volumes in {secs:.4f}s = "
-          f"{N_VIEWPOINTS / secs:.2f} volumes/s at batch {BATCH} "
+    print(f"image path: {N_VIEWPOINTS} volumes at batch {BATCH} "
           f"(ViT-B/{VIT_PATCH}, {VIT_LAYERS} layers, {VIT_HEADS} heads, "
-          f"{size} x {size}), ViT {vit_ms:.3f} ms of device time per batch "
-          f"(CUDA events), peak device memory {peak:.1f} MiB, upload "
-          f"{per_vol} B a volume, deform launches {launches} [{card}]")
-    return dict(launches_images=launches,
-                volumes_per_s_images=N_VIEWPOINTS / secs,
-                vit_ms_per_batch=vit_ms,
-                upload_bytes_per_volume_images=per_vol), images, vols
+          f"{size} x {size}), deform launches {launches}")
+    return images, vols
 
 
-def agent_volumes(ver, graphs, vols, card):
+def agent_volumes(ver, graphs, vols):
     """Phase 8, step 2: one synthetic viewpoint per token through the VER
     product path on the card (the get_occ.py model of phase 4, its seed-0
     weights, batch 4, the last batch padded and the padding dropped);
     each dump-layout volume read back as load_ver_features reads it.
-    Returns (token -> (900, C) volume, forward launches, volumes/s)."""
+    Returns {token: (900, C) volume}."""
     from vln_ver_tpu_torch.geometry import make_pinhole_world2pixel
     from vln_ver_tpu_torch.get_occ import make_bev_only
     from vln_ver_tpu_torch.models import build_model
@@ -1839,8 +1444,7 @@ def agent_volumes(ver, graphs, vols, card):
     batches = [tuple(a[b0:b0 + BATCH] for a in arrays)
                for b0 in range(0, len(arrays[0]), BATCH)]
     model = build_model(ver, "cuda", seed=0)
-    dumped, secs, ovf, launches, nq, _ = counted(make_bev_only(model),
-                                                 batches, ver)
+    dumped, ovf, launches, nq = counted(make_bev_only(model), batches, ver)
     del model
     want = ver.encoder_layers * len(batches)
     if ovf or launches != want or nq != ver.bev_num:
@@ -1854,12 +1458,10 @@ def agent_volumes(ver, graphs, vols, card):
             fail(f"agent volume {tok}: {flat.shape}, finite "
                  f"{np.isfinite(flat).all()}")
         out[tok] = flat
-    rate = len(tokens) / secs
     print(f"agent volumes: {len(tokens)} viewpoints through the VER path "
-          f"in {secs:.4f}s = {rate:.2f} volumes/s at batch {BATCH} "
-          f"({len(batches)} batches, {pad} padding), deform launches "
-          f"{launches}, backward 0 [{card}]")
-    return out, launches, rate
+          f"at batch {BATCH} ({len(batches)} batches, {pad} padding), "
+          f"deform launches {launches}, backward 0")
+    return out
 
 
 def _check_metrics(per_episode, what):
@@ -1874,49 +1476,10 @@ def _check_metrics(per_episode, what):
             fail(f"{what}: episode {i} metrics out of range {bad}: {m}")
 
 
-def busy_share(fn, what, card):
-    """``fn()`` once under torch.profiler: the device's busy share of the
-    wall time, printed with the largest kernels (None where the profiler
-    recorded no device time)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")]
-    dev_us = sum(e.self_device_time_total for e in events)
-    if not dev_us:
-        print(f"{what} device busy share: not measured (the profiler "
-              "recorded no device time)")
-        return None
-    print(f"{what} device busy share: {100 * dev_us / 1e6 / wall:.1f}% of "
-          f"{1e3 * wall:.3f} ms wall (profiled run) [{card}]")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
-              f"x{e.count:<5d} {e.key[:90]}")
-    return dev_us / 1e6 / wall
-
-
-def agent_profile(policy, env, cfg, card):
-    """One batch-8 rollout under torch.profiler: the device's busy share
-    of the wall time and its largest kernels."""
-    from vln_ver_tpu_torch.agent.rollout import run_episodes_batched
-    return busy_share(lambda: run_episodes_batched(
-        policy, env, list(range(AGENT_BATCH)), cfg),
-        f"agent batch-{AGENT_BATCH} rollout", card)
-
-
-def agent_path(ver, card):
-    """Phase 8; returns its numbers for the kernels line."""
+def agent_path(ver):
+    """Phase 8; returns its numbers and (the policy's config, the
+    episodes, graphs and volumes) for the phases after it."""
     import tempfile
-
-    import torch
 
     from vln_ver_tpu_torch.agent import replay
     from vln_ver_tpu_torch.agent.env import R2REnv, make_synthetic_vln
@@ -1929,22 +1492,17 @@ def agent_path(ver, card):
     cfg = PolicyConfig(embed_dims=ver.embed_dims, vocab_size=AGENT_VOCAB,
                        max_text_len=AGENT_TEXT_LEN, bev_z=ver.bev_z,
                        bev_h=ver.bev_h, bev_w=ver.bev_w)
-    # the generator draws the graphs and volumes before the episodes, so
-    # the first AGENT_EPISODES are those of a run of AGENT_EPISODES
     with tempfile.TemporaryDirectory() as root:
         episodes, graphs, vols = make_synthetic_vln(
             root, num_scans=AGENT_SCANS, nodes_per_scan=AGENT_NODES,
-            num_episodes=AGENT_RATE_EPISODES,
+            num_episodes=AGENT_EPISODES,
             bev_num=cfg.bev_z * cfg.bev_h * cfg.bev_w,
             embed_dims=cfg.embed_dims, vocab=AGENT_VOCAB,
             max_text_len=AGENT_TEXT_LEN, seed=0)
-    vols, launches, vol_rate = agent_volumes(ver, graphs, vols, card)
-    env = R2REnv(episodes[:AGENT_EPISODES], graphs, vols,
-                 max_nodes=cfg.max_nodes)
+    vols = agent_volumes(ver, graphs, vols)
+    env = R2REnv(episodes, graphs, vols, max_nodes=cfg.max_nodes)
     policy = build_policy(cfg, "cuda", seed=2)
     n_params = sum(p.numel() for p in policy.parameters())
-
-    run_episodes_batched(policy, env, list(range(AGENT_BATCH)), cfg)  # warm
     per_ep = {}
     for batch in (1, AGENT_BATCH):
         per_ep[batch] = episode_metrics(
@@ -1968,28 +1526,14 @@ def agent_path(ver, card):
           + f" (evaluate and evaluate_batched); batch {AGENT_BATCH} "
           "per-episode metrics equal batch 1's")
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    out = dict(launches_agent=launches, agent_volumes_per_s=vol_rate,
-               agent_params=n_params, **agent_rates(
-                   policy, R2REnv(episodes, graphs, vols,
-                                  max_nodes=cfg.max_nodes), cfg, card))
-    out["agent_peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
-    print(f"agent peak device memory over the rate passes "
-          f"{out['agent_peak_mib']:.1f} MiB [{card}]")
-    out[f"agent_busy_share_b{AGENT_BATCH}"] = agent_profile(policy, env,
-                                                           cfg, card)
-
     # card vs CPU: the batch-8 rollouts of every episode recorded on the
     # card, each policy call replayed on the CPU port with the same weights
     # and inputs
-    with replay.PolicyCalls(policy, record=True) as rec:
+    with replay.PolicyCalls(policy) as rec:
         for lo in range(0, AGENT_EPISODES, AGENT_BATCH):
             run_episodes_batched(policy, env, list(range(
                 lo, min(lo + AGENT_BATCH, AGENT_EPISODES))), cfg)
-    # no parameter requires grad: FlopCounterMode's module tracker (in
-    # agent_step_times) fails on a view of one made without autograd
-    cpu_policy = build_policy(cfg, "cpu", seed=2).requires_grad_(False)
+    cpu_policy = build_policy(cfg, "cpu", seed=2)
     t0 = time.perf_counter()
     try:
         held = replay.replay(rec.calls, cpu_policy)
@@ -2003,176 +1547,26 @@ def agent_path(ver, card):
           f"top-2 margin over {replay.MARGIN} (smallest "
           f"{held['min_margin']:.3e}), {held['near']} near-tie rows "
           f"skipped; the CPU took {time.perf_counter() - t0:.2f}s ok")
-    out["agent_max_abs_err_logits"] = held["worst"]["logits"]
-    out.update(agent_step_times(policy, cpu_policy, rec.calls, card))
+    out = dict(agent_params=n_params,
+               agent_max_abs_err_logits=held["worst"]["logits"])
     return out, (cfg, episodes, graphs, vols)
-
-
-def agent_rates(policy, env, cfg, card):
-    """Phase 8's rates: greedy evaluation of every episode of ``env`` at
-    batch 1 and in lockstep batches of AGENT_BATCH, AGENT_RATE_PASSES
-    passes of each, interleaved, from volumes in host memory to the
-    metrics.  Per pass: decision steps/s, episodes/s, decisions per
-    episode (beside the expert paths' edges and R2R's), the share of
-    batch rows still running, device ms per policy call (CUDA events; the
-    first call of an episode or batch also encodes the instruction) and
-    host ms per call by stage.  Each pass's per-episode metrics must be in
-    range, and the batched ones equal the sequential ones."""
-    import torch
-
-    from vln_ver_tpu_torch.agent.replay import PolicyCalls
-    from vln_ver_tpu_torch.agent.rollout import episode_metrics
-
-    n = len(env.episodes)
-    expert = float(np.mean([len(ep["path"]) - 1 for ep in env.episodes]))
-    out = {}
-    for p in range(AGENT_RATE_PASSES):
-        seq = None
-        for batch in (1, AGENT_BATCH):
-            times = {}
-            with PolicyCalls(policy, timed=True) as hooks:
-                t0 = time.perf_counter()
-                per_ep = episode_metrics(
-                    policy, env, cfg,
-                    batch_size=None if batch == 1 else batch, times=times)
-                torch.cuda.synchronize()
-                secs = time.perf_counter() - t0
-                dev_ms = np.asarray(hooks.device_ms())
-                first = np.asarray(hooks.first)
-            _check_metrics(per_ep, f"rate pass {p} batch {batch}")
-            if seq is None:
-                seq = per_ep
-            elif per_ep != seq:
-                fail(f"rate pass {p}: batch-{batch} per-episode metrics "
-                     f"differ from the sequential run's")
-            calls, dec = times["policy_calls"], times["decisions"]
-            host = {k: 1e3 * times[k] / calls
-                    for k in ("env", "memory", "upload", "policy")}
-            rows = calls * batch
-            row = dict(steps_per_s=dec / secs, episodes_per_s=n / secs,
-                       seconds=secs, decisions=dec, policy_calls=calls,
-                       decisions_per_episode=dec / n,
-                       active_row_share=dec / rows,
-                       device_ms_first=float(np.median(dev_ms[first])),
-                       device_ms_later=float(np.median(dev_ms[~first])),
-                       **{f"host_{k}_ms": v for k, v in host.items()})
-            print(f"agent eval pass {p} batch {batch}: {n} episodes, {dec} "
-                  f"decision steps ({dec / n:.3f} an episode; expert paths "
-                  f"{expert:.3f} edges, R2R's {R2R_PATH_EDGES}) in {calls} "
-                  f"policy calls, {100 * dec / rows:.1f}% of the batch rows "
-                  f"running; {secs:.4f}s = {dec / secs:.2f} decision "
-                  f"steps/s, {n / secs:.3f} episodes/s; device ms per call "
-                  f"(CUDA events, median) {row['device_ms_later']:.3f} "
-                  f"later, {row['device_ms_first']:.3f} first (instruction "
-                  f"encoded; {int(first.sum())} calls); host ms per call: "
-                  + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
-                  + f" [{card}]")
-            for k, v in row.items():
-                out.setdefault(f"agent_{k}_b{batch}", []).append(v)
-    out["agent_expert_path_edges"] = expert
-    return out
-
-
-def agent_step_times(policy, cpu_policy, calls, card):
-    """The policy step alone, on the recorded inputs of a later step (the
-    instruction features passed in), at batch 1 and 8: device ms in a CUDA
-    graph (the host's launches left out) and eager, beside its bound, the
-    larger of the bytes over 3.35 TB/s and the GEMM operations (counted by
-    FlopCounterMode on the CPU) over the 67 TFLOP/s fp32 peak.  The bytes
-    are those the step moves, found on the CPU by watching every op's
-    operands: the weights and inputs it reads, once each (a later step
-    never runs the text encoder), and the outputs it writes."""
-    import torch
-    from torch.utils._python_dispatch import TorchDispatchMode
-    from torch.utils._pytree import tree_leaves
-    from torch.utils.flop_counter import FlopCounterMode
-
-    from vln_ver_tpu_torch.agent.replay import tensors
-
-    class Reads(TorchDispatchMode):
-        """The storages of every op's tensor operands."""
-
-        def __init__(self):
-            super().__init__()
-            self.ptrs = set()
-
-        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            kwargs = kwargs or {}
-            self.ptrs.update(ptr(t) for t in tree_leaves((args, kwargs))
-                             if isinstance(t, torch.Tensor))
-            return func(*args, **kwargs)
-
-    def ptr(t):
-        return t.untyped_storage().data_ptr()
-
-    def nbytes(ts):
-        return sum(t.numel() * t.element_size() for t in ts)
-
-    later = [c for c in calls if c[1].get("text_feats") is not None]
-    args, kwargs, _ = (later or calls)[0]
-    weights = [*cpu_policy.parameters(), *cpu_policy.buffers()]
-    out = {}
-    for batch in (1, AGENT_BATCH):
-        a, k = tensors(lambda t: t[:batch], (args, kwargs))
-        with torch.no_grad(), FlopCounterMode(display=False) as flops, \
-                Reads() as reads:
-            res = cpu_policy(*a, **k)
-        ins = [t for t in tree_leaves((a, k)) if isinstance(t, torch.Tensor)]
-        read_w = [w for w in weights if ptr(w) in reads.ptrs]
-        read_in = [t for t in ins if ptr(t) in reads.ptrs]
-        written = [t for t in tree_leaves(tuple(res))
-                   if isinstance(t, torch.Tensor)
-                   and ptr(t) not in {ptr(i) for i in ins}]
-        moved = nbytes(read_w) + nbytes(read_in) + nbytes(written)
-        with torch.inference_mode():
-            ga, gk = tensors(lambda t: t.cuda(), (a, k))
-            graph_ms = time_graph_ms(lambda: policy(*ga, **gk), launches=10,
-                                     replays=10)
-            eager_ms = time_ms(lambda: policy(*ga, **gk), iters=20,
-                               warmup=3)
-        ops = flops.get_total_flops()
-        bytes_ms = 1e3 * moved / HBM_BYTES_PER_S
-        ops_ms = 1e3 * ops / FP32_FLOP_PER_S
-        bound = max(bytes_ms, ops_ms)
-        print(f"agent policy step alone at batch {batch} (a later step, "
-              f"text features passed in): {graph_ms:.4f} ms in a CUDA graph, "
-              f"{eager_ms:.4f} ms eager; bound {bound:.4f} ms "
-              f"({'bytes' if bytes_ms >= ops_ms else 'operations'}: "
-              f"{moved / 1e6:.1f} MB moved, {nbytes(read_w) / 1e6:.1f} MB "
-              f"of it the {sum(w.numel() for w in read_w)} of "
-              f"{sum(w.numel() for w in weights)} weights read; "
-              f"{ops / 1e9:.2f} GFLOP of GEMMs), "
-              f"{100 * bound / graph_ms:.1f}% of bound in the graph [{card}]")
-        out.update({f"agent_step_graph_ms_b{batch}": graph_ms,
-                    f"agent_step_eager_ms_b{batch}": eager_ms,
-                    f"agent_step_bound_ms_b{batch}": bound,
-                    f"agent_step_bytes_b{batch}": moved,
-                    f"agent_step_gflop_b{batch}": ops / 1e9})
-    return out
 
 
 def agent_hold(name, cpu_model, card_model, loss_of, card):
     """Phase 9: one update's losses and gradients on the card against the
     CPU's, from the same weights and batch, dropout off, the card's ReLUs
-    pinned to the CPU run's masks (agent/replay.py's bounds).  Returns the
-    GFLOP of the update (forward and backward, counted on the CPU by
-    FlopCounterMode)."""
-    from torch.utils.flop_counter import FlopCounterMode
-
+    pinned to the CPU run's masks (agent/replay.py's bounds)."""
     from vln_ver_tpu_torch.agent.replay import (GRAD_REL_L2, LOSS_RTOL,
                                                 hold_update, loss_and_grads)
     masks = []
     t0 = time.perf_counter()
-    with FlopCounterMode(display=False) as flops:
-        ref = loss_and_grads(cpu_model, loss_of(cpu_model, "cpu"),
-                             record=masks)
+    ref = loss_and_grads(cpu_model, loss_of(cpu_model, "cpu"), record=masks)
     cpu_s = time.perf_counter() - t0
     got = loss_and_grads(card_model, loss_of(card_model, "cuda"), pin=masks)
     try:
         held = hold_update(got, ref)
     except AssertionError as e:
         fail(f"{name}: {e}")
-    gflop = flops.get_total_flops() / 1e9
     print(f"{name} card vs CPU (one update, dropout off, {got['flips']} "
           f"ReLU elements pinned to the CPU's masks): losses "
           + ", ".join(f"{k} {v:.6f}" for k, v in got["parts"].items())
@@ -2180,90 +1574,22 @@ def agent_hold(name, cpu_model, card_model, loss_of, card):
           f"({held['loss'][1]}) (rtol {LOSS_RTOL}); worst relative gradient "
           f"L2 difference {held['grad'][0]:.3e} ({held['grad'][1]}), global "
           f"norm {ref['gnorm']:.6f} within {held['gnorm']:.3e} (bound "
-          f"{GRAD_REL_L2}); {gflop:.2f} GFLOP an update (forward and "
-          f"backward); the CPU took {cpu_s:.2f}s ok [{card}]")
-    return gflop, held
+          f"{GRAD_REL_L2}); the CPU took {cpu_s:.2f}s ok [{card}]")
 
 
-def stage_split(stages, n):
-    """ms per update of each stage, from the ``agent.update.mark`` events of
-    ``n`` updates: "start", "upload", "forward", "backward", "optimizer"."""
-    import torch
-    torch.cuda.synchronize()
-    split = {}
-    for (_, a), (name, b) in zip(stages, stages[1:]):
-        if name != "start":
-            split[name] = split.get(name, 0.0) + a.elapsed_time(b) / n
-    return split
-
-
-def timed_updates(name, updates, lossy, decisions_per_update, card,
-                  stages, times=None):
-    """AGENT_TRAIN_WARMUP updates of the generator ``updates``, then
-    AGENT_TRAIN_UPDATES timed ones; every loss finite.  Returns the
-    numbers of the window."""
-    import torch
-    losses = [lossy(next(updates)) for _ in range(AGENT_TRAIN_WARMUP)]
-    torch.cuda.synchronize()
-    stages.clear()
-    before = dict(times or {})
-    t0 = time.perf_counter()
-    for _ in range(AGENT_TRAIN_UPDATES):
-        losses.append(lossy(next(updates)))
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
+def checked_updates(name, updates, lossy):
+    """AGENT_TRAIN_UPDATES updates of the generator ``updates``; fails
+    unless every loss is finite.  Returns the total losses."""
+    losses = [lossy(next(updates)) for _ in range(AGENT_TRAIN_UPDATES)]
     host = [{k: float(v) for k, v in parts.items()} | {"loss": float(loss)}
             for loss, parts in losses]
     bad = [i for i, m in enumerate(host)
            if not all(np.isfinite(v) for v in m.values())]
     if bad:
         fail(f"{name}: non-finite losses at updates {bad}: {host}")
-    split = stage_split(stages, AGENT_TRAIN_UPDATES)
-    rollout = {}
-    if times is not None:
-        # the window's rollouts, and (for the steady state) every rollout
-        # so far: the warm-up's and the window's
-        win = {k: v - before.get(k, 0) for k, v in times.items()}
-        split = {"rollout": 1e3 * win["rollout"] / AGENT_TRAIN_UPDATES,
-                 **split}
-        calls = times["policy_calls"]
-        rollout = dict(window_rollouts=win["rollouts"],
-                       rollouts=times["rollouts"], sampled=times["sampled"],
-                       policy_calls=calls, decisions=times["decisions"],
-                       **{f"host_{k}_ms": 1e3 * times[k] / calls
-                          for k in ("env", "memory", "upload", "policy")})
-    rate = AGENT_TRAIN_UPDATES / secs
-    print(f"{name}: {AGENT_TRAIN_UPDATES} updates in {secs:.4f}s = "
-          f"{rate:.3f} updates/s, {rate * decisions_per_update:.2f} "
-          f"decision steps trained/s; ms per update: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
-          + " (rollout on the host clock, the rest between CUDA events); "
-          f"losses " + " ".join(f"{m['loss']:.4f}" for m in host)
-          + f" [{card}]")
-    if rollout:
-        # a rollout's records feed updates beyond the window: the steady
-        # state pays its host seconds per decision collected, plus the
-        # updates' seconds per decision trained
-        per_dec = times["rollout"] / rollout["decisions"]
-        upd = ((secs - win["rollout"])
-               / (AGENT_TRAIN_UPDATES * decisions_per_update))
-        rollout.update(rollout_ms_per_decision=1e3 * per_dec,
-                       update_ms_per_decision=1e3 * upd,
-                       steady_decisions_per_s=1 / (per_dec + upd))
-        print(f"{name}: {rollout['window_rollouts']} rollouts in the "
-              f"window; all {rollout['rollouts']} so far "
-              f"({rollout['sampled']} with the student's actions): "
-              f"{rollout['policy_calls']} policy calls for "
-              f"{rollout['decisions']} decisions; host ms per call: "
-              + ", ".join(f"{k[5:-3]} {v:.3f}" for k, v in rollout.items()
-                          if k.startswith("host_"))
-              + f"; {1e3 * per_dec:.3f} ms of rollout per decision "
-              f"collected, {1e3 * upd:.3f} ms of update per decision "
-              f"trained: {1 / (per_dec + upd):.2f} decision steps trained/s "
-              f"in the steady state [{card}]")
-    return dict(updates_per_s=rate, seconds=secs,
-                decisions_per_s=rate * decisions_per_update,
-                ms=split, losses=[m["loss"] for m in host], **rollout)
+    print(f"{name}: {AGENT_TRAIN_UPDATES} updates, losses "
+          + " ".join(f"{m['loss']:.4f}" for m in host))
+    return [m["loss"] for m in host]
 
 
 def moved(before, model):
@@ -2326,32 +1652,23 @@ def agent_training(cfg, episodes, graphs, vols, card):
     model = init_pretrain_params(VLNPretrainModel(cfg), 3)
     n_pre = sum(p.numel() for p in model.parameters())
     card_model = init_pretrain_params(VLNPretrainModel(cfg), 3).cuda()
-    out["pretrain_gflop"], _ = agent_hold(
+    agent_hold(
         f"agent pretraining ({n_pre} parameters, batch {PRETRAIN_BATCH})",
         model.eval(), card_model.eval(), pretrain_loss_of, card)
     del model
     model = card_model.train()
     before = [p.detach().to("cpu", copy=True) for p in model.parameters()]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     torch.manual_seed(0)
-    stages = []
     updates = pretrain_updates(
         model, make_train_state(model, PRETRAIN_LR), records, PRETRAIN_BATCH,
         np.random.default_rng(0), torch.Generator("cuda").manual_seed(11),
-        "cuda", stages=stages)
-    out["pretrain"] = timed_updates(
+        "cuda")
+    out["pretrain_losses"] = checked_updates(
         f"agent pretraining at batch {PRETRAIN_BATCH} (dropout on, "
-        f"{len(records)} offline records)", updates, lambda u: u[1:],
-        PRETRAIN_BATCH, card, stages)
-    out["pretrain"]["max_param_change"] = moved(before, model)
-    out["pretrain"]["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
-    stages.clear()
-    out["pretrain"]["busy_share"] = busy_share(
-        lambda: next(updates), "agent pretraining update", card)
-    print(f"agent pretraining peak device memory "
-          f"{out['pretrain']['peak_mib']:.1f} MiB, largest parameter change "
-          f"{out['pretrain']['max_param_change']:.3e} [{card}]")
+        f"{len(records)} offline records)", updates, lambda u: u[1:])
+    out["pretrain_max_param_change"] = moved(before, model)
+    print(f"agent pretraining: largest parameter change "
+          f"{out['pretrain_max_param_change']:.3e}")
     del model, card_model, updates, before
 
     # -- imitation with DAgger (the policy: phase 8's weights) -----------
@@ -2366,42 +1683,26 @@ def agent_training(cfg, episodes, graphs, vols, card):
         batch = stack_records(dagger_recs, dev)
         return lambda: imitation_step_loss(pol, batch)
 
-    out["dagger_gflop"], _ = agent_hold(
+    agent_hold(
         f"agent imitation ({sum(p.numel() for p in policy.parameters())} "
         f"parameters, {DAGGER_UPDATE_BATCH} steps of sampled rollouts)",
         build_policy(cfg, "cpu", seed=2), policy, imitation_loss_of, card)
     before = [p.detach().to("cpu", copy=True)
               for p in policy.parameters()]
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times, stages = {}, []
     updates = dagger_updates(
         policy, make_train_state(policy, DAGGER_LR), env, cfg,
         np.random.default_rng(0), gen, "cuda",
         sample_prob=DAGGER_SAMPLE_PROB, episode_batch=DAGGER_EPISODE_BATCH,
-        update_batch=DAGGER_UPDATE_BATCH, times=times, stages=stages)
-
-    def lossy(u):
-        float(u[1])          # as train_vln logs every update
-        return u[1:]
-    out["dagger"] = timed_updates(
+        update_batch=DAGGER_UPDATE_BATCH)
+    out["dagger_losses"] = checked_updates(
         f"agent imitation with DAgger (sample prob {DAGGER_SAMPLE_PROB}, "
         f"episode batch {DAGGER_EPISODE_BATCH}, update batch "
-        f"{DAGGER_UPDATE_BATCH}, dropout off)", updates, lossy,
-        DAGGER_UPDATE_BATCH, card, stages, times)
-    step = (AGENT_TRAIN_WARMUP + AGENT_TRAIN_UPDATES) * DAGGER_UPDATE_BATCH
-    out["dagger"]["max_param_change"] = moved(before, policy)
-    out["dagger"]["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
-    print(f"agent imitation peak device memory "
-          f"{out['dagger']['peak_mib']:.1f} MiB, largest parameter change "
-          f"{out['dagger']['max_param_change']:.3e} [{card}]")
-    stages.clear()
-    out["dagger"]["busy_share"] = busy_share(
-        lambda: next(updates), "agent imitation update (its rollout "
-        "included where the buffer runs short)", card)
-    step += DAGGER_UPDATE_BATCH
+        f"{DAGGER_UPDATE_BATCH}, dropout off)", updates, lambda u: u[1:])
+    step = AGENT_TRAIN_UPDATES * DAGGER_UPDATE_BATCH
+    out["dagger_max_param_change"] = moved(before, policy)
+    print(f"agent imitation: largest parameter change "
+          f"{out['dagger_max_param_change']:.3e}")
     del updates, before
-    norm_cost(policy, "the policy", card)
 
     # -- the handoff: save_model -> load_model -> evaluate_batched -------
     with tempfile.TemporaryDirectory() as root:
@@ -2420,8 +1721,6 @@ def agent_training(cfg, episodes, graphs, vols, card):
           f"evaluate_batched at batch {AGENT_BATCH} over {len(per_ep)} "
           "episodes: " + json.dumps({k: round(v, 4)
                                      for k, v in means.items()}) + " ok")
-    out["launches_fwd"], out["launches_bwd"] = (KERNEL.launches,
-                                                KERNEL_BWD.launches)
     if KERNEL.launches or KERNEL_BWD.launches:
         fail(f"phase 9 launched the deform kernels ({KERNEL.launches}, "
              f"{KERNEL_BWD.launches}): it trains on phase 8's volumes")
@@ -2480,10 +1779,8 @@ def _served_batches(reqs, batch_max, malformed=()):
     return out
 
 
-def serving(ver, feats, w2p, shift, dense_vols, images, image_vols, samples,
-            card):
-    """Phase 10; returns the forward kernel's launches over the served
-    queue and the phase's numbers."""
+def serving(ver, feats, w2p, shift, dense_vols, images, image_vols, samples):
+    """Phase 10."""
     import tempfile
 
     import torch
@@ -2559,9 +1856,6 @@ def serving(ver, feats, w2p, shift, dense_vols, images, image_vols, samples,
         fail("served volumes disagree with the direct forward")
     del model, vit, direct
 
-    rates = serve_rates(ver, feats, w2p, shift, images, dense_vols,
-                        image_vols, root, card)
-
     # --occupancy at vocc.py width on phase 6's viewpoints
     vocc = build_ver_config(load_config(
         os.path.join(REPO, "configs/verformer/vocc.py")))
@@ -2595,177 +1889,10 @@ def serving(ver, feats, w2p, shift, dense_vols, images, image_vols, samples,
     if not same:
         fail("the occupancy server disagrees with the direct forward")
     shutil.rmtree(root)
-    return launches, rates
 
 
 def _request(inputs, w2p, shift, key, i):
     return {key: inputs[i], "world2pixel": w2p[i], "origin_shift": shift[i]}
-
-
-def _serve_in_thread(args, times):
-    """``serve(args, times=times)`` on a thread of its own, while this
-    thread plays the clients; returns (thread, result): ``result`` gets
-    ``"served"``, or ``"error"`` when the server raised."""
-    import threading
-
-    from vln_ver_tpu_torch.serve import serve
-    result = {}
-
-    def run():
-        try:
-            result["served"] = serve(args, times=times)
-        except BaseException as e:  # handed to the client thread, raised
-            result["error"] = e
-
-    thread = threading.Thread(target=run, name="serve", daemon=True)
-    thread.start()
-    return thread, result
-
-
-def _await_served(times, n, thread, result, timeout_s=300.0):
-    """Wait until the server's claims have answered ``n`` requests; raises
-    the server's error, or fails, if it ends or stalls first."""
-    end = time.time() + timeout_s
-    while sum(t["requests"] for t in list(times)) < n:
-        if not thread.is_alive():
-            if "error" in result:
-                raise result["error"]
-            fail(f"the server stopped before answering {n} requests")
-        if time.time() > end:
-            fail(f"the server answered no {n} requests in {timeout_s} s")
-        time.sleep(0.002)
-
-
-def serve_rates(ver, feats, w2p, shift, images, dense_vols, image_vols,
-                root, card):
-    """Phase 10's rates: the server on its own thread, warmed by one full
-    batch of each kind, then a backlog of SERVE_RATE_REQUESTS requests
-    written at once (a share SERVE_RATE_IMAGE_SHARE of them image
-    requests; viewpoints drawn from phase 4's), then SERVE_LONE lone
-    requests of each kind, each sent when the last was answered.  Latency
-    runs from the rename that completes a client's write to its response
-    file's mtime.  Returns the numbers."""
-    import torch
-
-    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL
-
-    queue = os.path.join(root, "rates")
-    inbox, outbox = os.path.join(queue, "in"), os.path.join(queue, "out")
-    stage = os.path.join(root, "staged")
-    os.makedirs(stage)
-    kinds = {"f": (feats, "features"), "i": (images, "images")}
-    src = {}
-    for kind, (inputs, key) in kinds.items():
-        for i in range(N_VIEWPOINTS):
-            src[kind, i] = os.path.join(stage, f"{kind}{i:02d}.npz")
-            np.savez(src[kind, i], **_request(inputs, w2p, shift, key, i))
-    rng = np.random.default_rng(5)
-    drawn = [("i" if rng.random() < SERVE_RATE_IMAGE_SHARE else "f",
-              int(rng.integers(N_VIEWPOINTS)))
-             for _ in range(SERVE_RATE_REQUESTS)]
-    backlog = {}
-    for k, (kind, i) in enumerate(drawn):
-        backlog[f"r{k:04d}"] = os.path.join(stage, f"r{k:04d}.npz")
-        shutil.copyfile(src[kind, i], backlog[f"r{k:04d}"])
-    n_images = sum(kind == "i" for kind, _ in drawn)
-
-    # the warm batches: all written before the server starts, so its first
-    # two claims take the 8 feature requests, then the 8 image requests
-    _enqueue(queue, {f"w{kind}{j}": _request(inputs, w2p, shift, key, j)
-                     for kind, (inputs, key) in kinds.items()
-                     for j in range(SERVE_BATCH)})
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    thread, result = _serve_in_thread(
-        _serve_args("configs/verformer/get_occ.py", queue, images=True),
-        times)
-    n_warm = 2 * SERVE_BATCH
-    _await_served(times, n_warm, thread, result)
-    if [t["batches"] for t in times] != [1, 1]:
-        fail(f"the warm-up took claims of {[t['requests'] for t in times]} "
-             f"requests, expected two claims of {SERVE_BATCH}")
-
-    KERNEL.launches = 0
-    arrive = {}
-    for rid, path in backlog.items():
-        os.replace(path, os.path.join(inbox, f"{rid}.npz"))
-        arrive[rid] = time.time()
-    _await_served(times, n_warm + SERVE_RATE_REQUESTS, thread, result)
-    launches = KERNEL.launches
-    claims = times[2:]
-    for j in range(SERVE_LONE):
-        for kind, (inputs, key) in kinds.items():
-            rid = f"z{kind}{j}"
-            _enqueue(queue, {rid: _request(inputs, w2p, shift, key, j)})
-            arrive[rid] = time.time()
-            _await_served(times, n_warm + SERVE_RATE_REQUESTS
-                          + len(arrive) - len(backlog), thread, result)
-    with open(os.path.join(inbox, "STOP"), "w"):
-        pass
-    thread.join(timeout=60)
-    if thread.is_alive():
-        fail("the server did not stop on in/STOP")
-    if "error" in result:
-        raise result["error"]
-    peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    total = n_warm + SERVE_RATE_REQUESTS + 2 * SERVE_LONE
-    if result["served"] != total:
-        fail(f"the server served {result['served']} requests, expected "
-             f"{total}")
-
-    # the backlog's responses against phases 4 and 4d's volumes
-    done = {rid: os.path.getmtime(os.path.join(outbox, f"{rid}.npz"))
-            for rid in arrive}
-    err = 0.0
-    for (kind, i), rid in zip(drawn, backlog):
-        ref = (image_vols if kind == "i" else dense_vols)[i]
-        err = max(err, float(np.abs(_response(queue, rid)["volume"]
-                                    - ref).max()))
-    nb = sum(t["batches"] for t in claims)
-    if err > 1e-5 or launches != ver.encoder_layers * nb:
-        fail(f"the backlog's volumes are {err:.3e} from phases 4 and 4d's "
-             f"(atol 1e-5), or its {launches} deform launches are not "
-             f"{ver.encoder_layers} for each of its {nb} batches")
-    window = max(done[r] for r in backlog) - min(arrive[r] for r in backlog)
-    lat = np.asarray([done[r] - arrive[r] for r in backlog]) * 1e3
-    lone = {kind: float(np.median([1e3 * (done[f"z{kind}{j}"]
-                                          - arrive[f"z{kind}{j}"])
-                                   for j in range(SERVE_LONE)]))
-            for kind in kinds}
-    stages = {k: 1e3 * sum(t[k] for t in claims) / nb
-              for k in ("claim", "load", "upload", "forward", "copy",
-                        "write")}
-    forward_share = sum(t["forward"] for t in claims) / window
-    pad_share = 1.0 - SERVE_RATE_REQUESTS / (nb * SERVE_BATCH)
-    rate = SERVE_RATE_REQUESTS / window
-    print(f"server rates: a backlog of {SERVE_RATE_REQUESTS} requests "
-          f"({SERVE_RATE_REQUESTS - n_images} feature, {n_images} image) "
-          f"written at once after a warm batch of each kind, served in "
-          f"{window:.4f}s = {rate:.2f} requests/s at batch_max "
-          f"{SERVE_BATCH} ({len(claims)} claims, {nb} batches, "
-          f"{100 * pad_share:.1f}% of the rows padding); latency from the "
-          f"client's write to the response: median {np.median(lat):.2f} ms, "
-          f"max {lat.max():.2f} ms; max_abs_err vs phases 4 and 4d "
-          f"{err:.3e} (atol 1e-5); ms a batch: "
-          + ", ".join(f"{k} {v:.3f}" for k, v in stages.items())
-          + f" (forward by CUDA events, {100 * forward_share:.1f}% of the "
-          f"window); a lone request on the idle server (poll 5 ms, median "
-          f"of {SERVE_LONE}): feature {lone['f']:.2f} ms, image "
-          f"{lone['i']:.2f} ms; peak device memory {peak:.1f} MiB, deform "
-          f"launches {launches} [{card}]")
-    return dict(serve_requests=SERVE_RATE_REQUESTS,
-                serve_image_requests=n_images,
-                serve_window_s=window, serve_requests_per_s=rate,
-                serve_latency_ms_median=float(np.median(lat)),
-                serve_latency_ms_max=float(lat.max()),
-                serve_lone_ms_features=lone["f"],
-                serve_lone_ms_images=lone["i"],
-                serve_claims=len(claims), serve_batches=nb,
-                serve_pad_share=pad_share,
-                serve_forward_share=forward_share,
-                serve_peak_mib=peak, serve_launches=launches,
-                **{f"serve_{k}_ms": v for k, v in stages.items()})
 
 
 def _free_port() -> int:
@@ -2773,52 +1900,6 @@ def _free_port() -> int:
     with socket.socket() as sock:
         sock.bind(("127.0.0.1", 0))
         return sock.getsockname()[1]
-
-
-class _MemoryH5:
-    """The part of ``h5py.File`` that ``dump_volumes`` and
-    ``NuScenesAdapter`` use, in memory (the card's machine need not have
-    h5py): ``files[path][key]`` is an array."""
-    files = {}
-
-    def __init__(self, path, mode="r"):
-        self.data = _MemoryH5.files.setdefault(path, {})
-
-    def __enter__(self):
-        return self
-
-    def __exit__(self, *exc):
-        self.close()
-
-    def close(self):
-        pass
-
-    def __contains__(self, key):
-        return key in self.data
-
-    def __getitem__(self, key):
-        return self.data[key]
-
-    def __delitem__(self, key):
-        del self.data[key]
-
-    def create_dataset(self, name, data, **_):
-        self.data[name] = np.array(data)
-
-
-@contextlib.contextmanager
-def memory_h5():
-    """``import h5py`` gives :class:`_MemoryH5` inside the block."""
-    import types
-    saved = sys.modules.get("h5py")
-    sys.modules["h5py"] = types.SimpleNamespace(File=_MemoryH5)
-    try:
-        yield
-    finally:
-        if saved is None:
-            del sys.modules["h5py"]
-        else:
-            sys.modules["h5py"] = saved
 
 
 @contextlib.contextmanager
@@ -2845,8 +1926,7 @@ def nccl_world_one():
 
 def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
                    card):
-    """Phase 10b; returns the forward and backward launches of its mesh
-    dumps, mesh train step and mesh eval.  The lift runs on a view shard
+    """Phase 10b.  The lift runs on a view shard
     of the world group (index 0 of 1), so its all-reduces of the slot sums
     and hit counts, and of the sparse lift's overflow, run under NCCL."""
     import torch
@@ -2873,7 +1953,6 @@ def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
                    for i in range(N_VIEWPOINTS)]
         n_batches = -(-N_VIEWPOINTS // BATCH)
         model = replicate(mesh, build_model(ver, dev, seed=0))
-        fwd = bwd = 0
         # the dense lift (exact) and the sparse lift (phase 4b's bound)
         for name, cfg, atol in (
                 ("dense", ver, 0.0),
@@ -2882,13 +1961,15 @@ def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
             lift = build_model(cfg, dev, seed=0)
             lift.load_state_dict(model.state_dict(), strict=True)
             lift.shard_views(views)
-            path = f"mesh_{name}.hdf5"
+            store = MemoryH5()
+            store.keep = {d["token"] for d in dataset}
             KERNEL.launches = KERNEL_BWD.launches = 0
-            with memory_h5():
-                res = dump_volumes(make_bev_only(lift), dataset, ver, path,
-                                   batch_size=BATCH, device=dev, mesh=mesh)
-            got = _MemoryH5.files.pop(path)
-            err = max(float(np.abs(got[f"vp{i:02d}"] - dense_vols[i]).max())
+            with store.installed():
+                res = dump_volumes(make_bev_only(lift), dataset, ver,
+                                   f"mesh_{name}.hdf5", batch_size=BATCH,
+                                   device=dev, mesh=mesh)
+            err = max(float(np.abs(store.kept[f"vp{i:02d}"]
+                                   - dense_vols[i]).max())
                       for i in range(N_VIEWPOINTS))
             ok = (res["written"] == N_VIEWPOINTS and res["sca_overflow"] == 0
                   and err <= atol and not KERNEL_BWD.launches
@@ -2901,8 +1982,7 @@ def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
                   f"{'ok' if ok else 'FAIL'}")
             if not ok:
                 fail(f"the {name} mesh dump disagrees with phase 4")
-            fwd += KERNEL.launches
-            del lift
+            del lift, store
         del model
 
         # one train --mesh 1 step on the view shard against phase 7's
@@ -2920,8 +2000,6 @@ def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
             torch.backends.cudnn.deterministic = saved
         hold_step("train --mesh 1 step on a view shard under NCCL vs the "
                   "plain step (card)", meshed, plain, 1e-6, 1e-6, card)
-        fwd += meshed[3][0]
-        bwd += meshed[3][1]
 
         # test --mesh 1: the rows gathered and the histograms summed
         # through NCCL, against the one-process eval (phase 6's split)
@@ -2933,8 +2011,6 @@ def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
         meshed = evaluate_model(model, samples, occ_thresholds=(0.25,),
                                 batch_size=EVAL_BATCH, classes=classes,
                                 mesh=mesh)
-        fwd += KERNEL.launches
-        bwd += KERNEL_BWD.launches
         ok = meshed == plain and KERNEL.launches == ver.encoder_layers * (
             -(-len(samples) // EVAL_BATCH))
         print(f"evaluate_model(mesh=make_mesh((1, 1))) under NCCL: "
@@ -2961,13 +2037,10 @@ def mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
               f"one-process run's {'ok' if ok else 'FAIL'}")
         if not ok:
             fail("the mesh agent eval disagrees with the one-process run")
-    return fwd, bwd
 
 
 def grids_world_one(ver, weights, samples, card):
-    """Phase 10c; returns {path: (forward, backward launches)} of its
-    tensor-parallel step, multi-slice step and pipeline runs, and its
-    numbers."""
+    """Phase 10c; returns its numbers."""
     import torch
 
     from vln_ver_tpu_torch import geometry
@@ -2982,7 +2055,7 @@ def grids_world_one(ver, weights, samples, card):
                                                      sequential_apply)
 
     t_phase = time.perf_counter()
-    launches, numbers = {}, {}
+    numbers = {}
     with nccl_world_one() as dev:
         # train --tp-model and --mesh S,D,V steps against the plain step,
         # as phase 10b holds its train --mesh step
@@ -3010,7 +2083,6 @@ def grids_world_one(ver, weights, samples, card):
         hold_step("train --mesh 1,1,1 step (make_multislice_mesh(1, 1, 1)) "
                   "under NCCL vs the plain step (card)", sliced, plain, 1e-6,
                   1e-6, card)
-        launches["tp"], launches["multislice"] = tp[3], sliced[3]
         mib = 2 ** 20
         numbers.update(
             tp_fraction=tensor.tp_fraction(states[1], tp_mesh),
@@ -3077,10 +2149,8 @@ def grids_world_one(ver, weights, samples, card):
                     (KERNEL.launches, KERNEL_BWD.launches))
 
         ref = run(None)
-        fwd = bwd = 0
         for micro in (2, 4):
             out, grads, got = run(micro)
-            fwd, bwd = fwd + got[0], bwd + got[1]
             err = float((out - ref[0]).abs().max())
             ok_out = bool(torch.allclose(out, ref[0], rtol=2e-5, atol=2e-5))
             bad = [i for i, (g, r) in enumerate(zip(grads, ref[1]))
@@ -3102,10 +2172,8 @@ def grids_world_one(ver, weights, samples, card):
                 fail(f"the pipeline at {micro} microbatches: outputs "
                      f"{'ok' if ok_out else 'differ'}, gradients {bad[:5]} "
                      f"differ, launches {got} (expected {want})")
-        launches["pipeline"] = (fwd, bwd)
-    numbers["seconds"] = time.perf_counter() - t_phase
-    print(f"phase 10c: {numbers['seconds']:.2f}s [{card}]")
-    return launches, numbers
+    print(f"phase 10c: {time.perf_counter() - t_phase:.2f}s")
+    return numbers
 
 
 def path_shape_timing(card):
@@ -3139,8 +2207,9 @@ def path_shape_timing(card):
             bwd_plain_ms = time_ms(lambda: torch.autograd.grad(
                 o, ins, g, retain_graph=True), iters=20, warmup=3)
             del o, ins
-            bound_ms, bound_by = deform_bound(v, loc, w, (H, W))
-            bwd_bound_ms, bwd_bound_by = deform_bwd_bound(v, loc, w, (H, W))
+            bound_ms, bound_by = deform_bound(v, loc, (H, W))
+            bwd_bound_ms, bwd_bound_by = deform_bound(v, loc, (H, W),
+                                                      backward=True)
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                      bound_by=bound_by,
                      smem_floor_ms=smem_floor_ms(v, loc, (H, W)),
@@ -3195,9 +2264,10 @@ def headline_shape_timing(card):
             with torch.inference_mode():
                 plain_ms = time_ms(lambda: plain_forward(v, (H, W), loc, w),
                                    iters=10, warmup=2)
-            bound_ms, bound_by = deform_bound(v, loc, w, (H, W))
+            bound_ms, bound_by = deform_bound(v, loc, (H, W))
             r.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                     bound_by=bound_by, plan=KERNEL.last_plan._asdict(),
+                     bound_by=bound_by, plan=KERNEL.plan(
+                         bs, 8, nq, H * W, 96, 4, dev)._asdict(),
                      smem_floor_ms=smem_floor_ms(v, loc, (H, W)))
             if backward:
                 ins = [t.detach().requires_grad_() for t in (v, loc, w)]
@@ -3205,12 +2275,14 @@ def headline_shape_timing(card):
                 bwd_plain_ms = time_ms(lambda: torch.autograd.grad(
                     o, ins, g, retain_graph=True), iters=10, warmup=2)
                 del o, ins
-                bwd_bound_ms, bwd_bound_by = deform_bwd_bound(v, loc, w,
-                                                              (H, W))
+                bwd_bound_ms, bwd_bound_by = deform_bound(
+                    v, loc, (H, W), backward=True)
                 r.update(bwd_ms=bwd_ms, bwd_plain_ms=bwd_plain_ms,
                          bwd_bound_ms=bwd_bound_ms,
                          bwd_bound_by=bwd_bound_by,
-                         bwd_plan=KERNEL_BWD.last_plan._asdict(),
+                         bwd_plan=KERNEL_BWD.plan(
+                             bs, 8, nq, H * W, 96, 4, dev, True,
+                             True)._asdict(),
                          bwd_smem_floor_ms=smem_floor_ms(v, loc, (H, W),
                                                          backward=True))
         out[name] = r
@@ -3252,18 +2324,14 @@ def _moving_viewpoints(cfg, n, t_len, seed):
 
 def temporal_path(ver, samples, card):
     """Phase 11: the temporal VER model (TSA) at get_occ.py / vocc.py
-    widths and its decoder_on_bev head; returns the launches of its runs
-    and its numbers."""
-    import itertools
-
+    widths and its decoder_on_bev head."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
     from vln_ver_tpu_torch.config import build_train_config, load_config
-    from vln_ver_tpu_torch.data.mp3d import collate
     from vln_ver_tpu_torch.models import build_model
     from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
-    from vln_ver_tpu_torch.train import (create_train_state, make_train_step,
-                                         to_device)
+    from vln_ver_tpu_torch.utils.profiling import recorded
 
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
@@ -3293,24 +2361,14 @@ def temporal_path(ver, samples, card):
         return prev, cur
 
     model = build_model(tsa, dev, seed=0)
-    inputs = staged(dev, TEMPORAL_BATCH)
-    history_run(model, inputs)                   # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = KERNEL_BWD.launches = 0
-    last = []
-    calls, hist_s = timed_window(
-        lambda: last.__setitem__(slice(None), history_run(model, inputs)))
-    prev, cur = last
-    launches = {"history": KERNEL.launches}
-    want = tsa.encoder_layers * frames * calls
-    if KERNEL.launches != want or KERNEL_BWD.launches:
-        fail(f"the history runs launched the kernels {KERNEL.launches} and "
+    prev, cur = history_run(model, staged(dev, TEMPORAL_BATCH))
+    launches = KERNEL.launches
+    if launches != tsa.encoder_layers * frames or KERNEL_BWD.launches:
+        fail(f"the history run launched the kernels {launches} and "
              f"{KERNEL_BWD.launches} times, expected {tsa.encoder_layers} "
-             f"x {frames} frames x {calls} runs and none")
-    hist_peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    hist_rate = TEMPORAL_BATCH * frames * calls / hist_s
-    del model, inputs
+             f"x {frames} frames and none")
+    del model
     t0 = time.perf_counter()
     cpu_prev, cpu_cur = history_run(build_model(tsa, "cpu", seed=0),
                                     staged("cpu", TEMPORAL_CPU_ROWS))
@@ -3325,51 +2383,46 @@ def temporal_path(ver, samples, card):
               f"atol=1e-4) {'ok' if ok else 'FAIL'}")
         if not ok or not bool(torch.isfinite(got).all()):
             fail(f"the temporal {name} disagrees with the CPU run")
-    print(f"temporal history run: {calls} runs of {TEMPORAL_BATCH} "
-          f"viewpoints x {frames} frames (inputs on the card) in "
-          f"{hist_s:.4f}s = {hist_rate:.2f} viewpoint frames/s, peak device "
-          f"memory {hist_peak:.1f} MiB, deform launches "
-          f"{launches['history']}; the CPU took {cpu_s:.2f}s [{card}]")
+    print(f"temporal history run: {TEMPORAL_BATCH} viewpoints x {frames} "
+          f"frames, deform launches {launches}; the CPU took {cpu_s:.2f}s")
 
     # the full forward with decoder_on_bev at the eval batch, on the
-    # history's last two viewpoints: timed at the full grid, held against
-    # the CPU on the 0.2 m grid
+    # history's last two viewpoints: its launches at the full grid, held
+    # against the CPU on the 0.2 m grid
     rows = slice(0, EVAL_BATCH)
     inputs = [torch.from_numpy(np.ascontiguousarray(a[rows, -1]))
               for a in (feats, w2p, pos)]
     extra = dict(prev_bev=prev[rows].float().cpu(),
                  tsa_shift=torch.from_numpy(shift[rows]))
-    numbers = {}
-    launches["decoder_on_bev"] = 0
+    enc, dec = tsa.encoder_layers, tsa.decoder_layers
     for kind in ("mlp", "pool"):
         cfg = dataclasses.replace(tsa, decoder_on_bev=True,
                                   voxel_2_bev_type=kind)
         model = build_model(cfg, dev, seed=0)
         args = [t.to(dev) for t in inputs]
         kw = {k: v.to(dev) for k, v in extra.items()}
-        last = {}
+        # the first forward captures the decoder's CUDA graph, launching
+        # its kernels from the host twice (warm-up and capture); the
+        # second replays it, and only the encoder launches from the host
+        KERNEL.launches = KERNEL_BWD.launches = 0
         with torch.inference_mode():
-            model(*args, **kw)
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-            KERNEL.launches = KERNEL_BWD.launches = 0
-            calls, fwd_s = timed_window(
-                lambda: last.update(model(*args, **kw)))
-        want = tsa.encoder_layers + tsa.decoder_layers
-        if KERNEL.launches != want * calls \
-                or KERNEL.last_nq != tsa.num_query or KERNEL_BWD.launches:
-            fail(f"the decoder_on_bev={kind} forwards launched the kernels "
-                 f"{KERNEL.launches} (last nq {KERNEL.last_nq}) and "
-                 f"{KERNEL_BWD.launches} times, expected {want} x {calls} "
-                 f"forwards and none")
-        launches["decoder_on_bev"] += KERNEL.launches
+            with planned() as nq:
+                model(*args, **kw)
+            first = KERNEL.launches
+            with profile(activities=[ProfilerActivity.CPU]):
+                last = model(*args, **kw)
+            replays = recorded()["counters"].get("decoder#graph_replays")
+        got = (first, nq["fwd"], KERNEL.launches - first, replays,
+               KERNEL_BWD.launches)
+        want = (enc + 2 * dec, tsa.num_query, enc, 1.0, 0)
+        if got != want:
+            fail(f"the decoder_on_bev={kind} forwards: (launches of the "
+                 f"capturing forward, its last nq, launches of the "
+                 f"replaying one, its decoder#graph_replays, backward "
+                 f"launches) {got}, expected {want}")
         for k in ("all_cls_scores", "all_bbox_preds", "occupancy_preds"):
             if not bool(torch.isfinite(last[k]).all()):
                 fail(f"non-finite {k} with decoder_on_bev={kind}")
-        numbers[f"decoder_on_bev_{kind}_viewpoints_per_s"] = (
-            EVAL_BATCH * calls / fwd_s)
-        numbers[f"decoder_on_bev_{kind}_peak_mib"] = (
-            torch.cuda.max_memory_allocated() / 2 ** 20)
         del model, last
         check = dataclasses.replace(cfg, occupancy_size=(0.2, 0.2, 0.2))
         with torch.inference_mode():
@@ -3388,16 +2441,12 @@ def temporal_path(ver, samples, card):
             if not ok:
                 fail(f"card {k} disagrees with the CPU run "
                      f"(decoder_on_bev={kind})")
-        print(f"decoder_on_bev={kind} full forward: "
-              f"{numbers[f'decoder_on_bev_{kind}_viewpoints_per_s']:.3f} "
-              f"viewpoints/s at batch {EVAL_BATCH} ({calls} forwards in "
-              f"{fwd_s:.4f}s, inputs on the card, full grid), peak device "
-              f"memory {numbers[f'decoder_on_bev_{kind}_peak_mib']:.1f} MiB, "
-              f"deform launches {want} a forward; the CPU forward took "
-              f"{cpu_s:.2f}s [{card}]")
+        print(f"decoder_on_bev={kind} full forward at batch {EVAL_BATCH}: "
+              f"(launches of the capturing forward, its last nq, launches "
+              f"of the replaying one, its decoder#graph_replays, backward "
+              f"launches) {got}; the CPU forward took {cpu_s:.2f}s")
 
-    # training: a TSA + decoder_on_bev=mlp step held against the CPU, then
-    # timed steps at the full grid
+    # training: a TSA + decoder_on_bev=mlp step held against the CPU
     cfg = load_config(os.path.join(REPO, "configs/verformer/vocc.py"))
     tc = build_train_config(cfg, len(samples))
     train_cfg = dataclasses.replace(tsa, decoder_on_bev=True)
@@ -3413,30 +2462,7 @@ def temporal_path(ver, samples, card):
             and ".attentions.0." in n and not bool(g.any())]
     if dead:
         fail(f"TSA parameters without a gradient: {dead[:5]}")
-    launches["train"] = (fwd, bwd)
-    model = build_model(train_cfg, dev, seed=0)
-    state = create_train_state(model, tc)
-    step_fn = make_train_step(train_cfg, tc)
-    batches = [to_device(collate([s_]), dev) for s_ in samples]
-    step_fn(state, batches[0], seed=1)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    cycle = itertools.cycle(batches)
-    steps, train_s = timed_window(lambda: step_fn(state, next(cycle),
-                                                  seed=1))
-    numbers.update(
-        history_frames_per_s=hist_rate,
-        history_peak_mib=hist_peak,
-        train_steps_per_s=steps / train_s,
-        train_peak_mib=torch.cuda.max_memory_allocated() / 2 ** 20,
-        seconds=time.perf_counter() - t_phase)
-    print(f"TSA + decoder_on_bev=mlp train: {steps} steps in {train_s:.4f}s "
-          f"= {numbers['train_steps_per_s']:.3f} steps/s at batch 1 (batches "
-          f"on the card, full grid), peak device memory "
-          f"{numbers['train_peak_mib']:.1f} MiB, {len(dead)} TSA parameters "
-          f"without a gradient; phase 11 took {numbers['seconds']:.2f}s "
-          f"[{card}]")
-    return launches, numbers
+    print(f"phase 11: {time.perf_counter() - t_phase:.2f}s")
 
 
 def gather_bound_ms(bs, shapes, heads, d, nq, P, elt):
@@ -3512,11 +2538,10 @@ def gather_shapes(card):
     return numbers
 
 
-def bev2d_path(card):
+def bev2d_path():
     """Phase 12: BEVFormer-2D at BEV2DConfig's defaults over synthetic
     nuScenes scenes, read through NuScenesAdapter from an info pkl under
-    TMPDIR and features in an in-memory stand-in for h5py; returns its
-    launches and numbers."""
+    TMPDIR and features in an in-memory stand-in for h5py."""
     import pickle
     import tempfile
 
@@ -3543,23 +2568,16 @@ def bev2d_path(card):
         pickle.dump(infos, f)
     data = NuScenesAdapter(ann, root, num_cams=cfg.num_cams,
                            feat_hw=cfg.feat_h)
-    _MemoryH5.files[data.feature_file] = feats
-    with memory_h5():
-        # every frame read and collated on the host once, timed apart
-        t0 = time.perf_counter()
+    store = MemoryH5()
+    store.files[data.feature_file] = feats
+    with store.installed():
+        # every frame read and collated on the host once
         host = {batch: [collate([data[s * BEV2D_FRAMES + t]
                                  for s in range(batch)])
                         for t in range(BEV2D_FRAMES)]
                 for batch in BEV2D_BATCHES}
-        read_s = time.perf_counter() - t0
-    _MemoryH5.files.pop(data.feature_file)
+    del store
     shutil.rmtree(root)
-    n_read = sum(BEV2D_BATCHES) * BEV2D_FRAMES
-    numbers = {"host_read_collate_ms_a_frame": 1e3 * read_s / n_read}
-    print(f"bev2d input: {n_read} nuScenes samples read through "
-          f"NuScenesAdapter and collated in {read_s:.4f}s = "
-          f"{numbers['host_read_collate_ms_a_frame']:.3f} ms a sample "
-          f"(host, outside the timed windows)")
     per_frame = 2 * cfg.encoder_layers + cfg.decoder_layers
 
     def frames(batch, device):
@@ -3580,24 +2598,15 @@ def bev2d_path(card):
 
     model = off_lattice(build_bev2d(cfg, dev, seed=2))
     cpu_model = off_lattice(build_bev2d(cfg, "cpu", seed=2))
-    launches = {}
     for batch in BEV2D_BATCHES:
-        inputs = frames(batch, dev)
-        chain(model, inputs)                          # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
         KERNEL.launches = KERNEL_BWD.launches = 0
-        last = {}
-        calls, secs = timed_window(lambda: last.update(chain(model, inputs)))
-        outs = last
+        outs = chain(model, frames(batch, dev))
         n = KERNEL.launches
-        if n != per_frame * BEV2D_FRAMES * calls or KERNEL_BWD.launches:
+        if n != per_frame * BEV2D_FRAMES or KERNEL_BWD.launches:
             fail(f"BEVFormer2D launched the kernels {n} and "
-                 f"{KERNEL_BWD.launches} times over {calls} chains of "
+                 f"{KERNEL_BWD.launches} times over a chain of "
                  f"{BEV2D_FRAMES} frames, expected {per_frame} a frame and "
                  f"none")
-        launches[f"b{batch}"] = n
-        peak = torch.cuda.max_memory_allocated() / 2 ** 20
         t0 = time.perf_counter()
         ref = chain(cpu_model, frames(batch, "cpu"))
         cpu_s = time.perf_counter() - t0
@@ -3610,13 +2619,8 @@ def bev2d_path(card):
                   f"{'ok' if ok else 'FAIL'}")
             if not ok or not bool(torch.isfinite(outs[k]).all()):
                 fail(f"the BEVFormer2D {k} disagrees with the CPU run")
-        rate = batch * BEV2D_FRAMES * calls / secs
-        numbers[f"frames_per_s_b{batch}"] = rate
-        numbers[f"peak_mib_b{batch}"] = peak
-        print(f"bev2d chain: {calls} chains of {batch} x {BEV2D_FRAMES} "
-              f"frames (inputs on the card) in {secs:.4f}s = {rate:.2f} "
-              f"frames/s at batch {batch}, peak device memory {peak:.1f} "
-              f"MiB, deform launches {n}; the CPU took {cpu_s:.2f}s [{card}]")
+        print(f"bev2d chain: {batch} x {BEV2D_FRAMES} frames, deform "
+              f"launches {n}; the CPU took {cpu_s:.2f}s")
 
     # one backward of a scalar of the last frame's outputs at batch 1, the
     # card's ReLUs on the CPU run's masks
@@ -3645,7 +2649,6 @@ def bev2d_path(card):
         fail(f"the BEVFormer2D backward run launched the kernels {fwd} and "
              f"{bwd} times, expected {per_frame * BEV2D_FRAMES} and "
              f"{per_frame} (history frames launch no backward)")
-    launches["backward"] = (fwd, bwd)
     worst, failed = (0.0, None), []
     for n_, g_cpu in gh.items():
         diff = float(torch.linalg.vector_norm((gc[n_] - g_cpu).double()))
@@ -3663,98 +2666,7 @@ def bev2d_path(card):
     if failed:
         fail(f"BEVFormer2D card gradients disagree with the CPU: "
              f"{failed[:5]}")
-    numbers["seconds"] = time.perf_counter() - t_phase
-    print(f"bev2d phase: {numbers['seconds']:.2f}s [{card}]")
-    return launches, numbers
-
-
-def headline_breakdown(model, ins, card):
-    """Where one 36-view forward's time goes: device ms of the forward and
-    of each stage (CUDA events, ``stage_times``), the upsampler alone on
-    its input (cuDNN's heuristic algorithm, then ``cudnn.benchmark``'s),
-    then one forward under torch.profiler for the device's busy share and
-    its largest kernels.  Returns (numbers, (upsampler, its input))."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    head = model.pts_bbox_head
-    # the bf16 forward runs the occupancy MLP in its kernel, not in the
-    # branch module, so no module hook sees it: the last stage is occ_proj
-    stages = {"encoder": [head.transformer.encoder],
-              "decoder with branches": [head.transformer.decoder,
-                                        *head.cls_branches],
-              "upsampler": [head.up_sample],
-              "occupancy projection": [head.occ_proj]}
-    last = {}
-
-    def one():
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        with torch.inference_mode():
-            ev[0].record()
-            model(*ins)
-            ev[1].record()
-        torch.cuda.synchronize()
-        last["forward"] = ev[0].elapsed_time(ev[1])
-
-    one()
-    times = stage_times(stages, one)
-    out = {"forward_ms": last["forward"], **{f"{k}_ms": v
-                                             for k, v in times.items()}}
-    # the upsampler alone on its own input, called as the forward calls
-    # it (the default layout asks for ``informative``), with cuDNN's
-    # heuristic choice and with its benchmarked one (cudnn.benchmark,
-    # never set elsewhere)
-    captured = {}
-
-    def capture(mod, args, kwargs):
-        captured.setdefault("call", (args[0].detach(), kwargs))
-
-    hook = head.up_sample.register_forward_pre_hook(capture,
-                                                    with_kwargs=True)
-    with torch.inference_mode():
-        model(*ins)
-    hook.remove()
-    upsampler = (head.up_sample, *captured["call"])
-    for flag in (False, True):
-        torch.backends.cudnn.benchmark = flag
-        out[f"upsampler_alone_ms_benchmark_{flag}"] = upsampler_ms(
-            *upsampler)
-    torch.backends.cudnn.benchmark = False
-    print(f"headline forward at batch {ins[0].shape[0]} (bf16, CUDA events):"
-          f" {last['forward']:.3f} ms; " + ", ".join(
-              f"{k} {v:.3f} ms" for k, v in times.items()) + "; the "
-          f"upsampler alone {out['upsampler_alone_ms_benchmark_False']:.3f} "
-          f"ms ({out['upsampler_alone_ms_benchmark_True']:.3f} ms with "
-          f"cudnn.benchmark) [{card}]")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        one()
-        wall = time.perf_counter() - t0
-    events = [e for e in prof.key_averages()
-              if getattr(e, "device_type", None) is not None
-              and str(e.device_type).endswith("CUDA")]
-    dev_us = sum(e.self_device_time_total for e in events)
-    if not dev_us:
-        print("headline busy share: not measured (the profiler recorded no "
-              "device time)")
-        return out, upsampler
-    out["busy_share"] = dev_us / 1e6 / wall
-    print(f"device busy share of one headline forward: "
-          f"{100 * out['busy_share']:.1f}% of {1e3 * wall:.3f} ms wall "
-          f"(profiled) [{card}]")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
-        print(f"  device {e.self_device_time_total / 1e3:9.3f} ms "
-              f"x{e.count:<4d} {e.key[:90]}")
-    return out, upsampler
-
-
-def upsampler_ms(up, x, kwargs, calls=5):
-    """Device ms of one call ``up(x, **kwargs)`` of the upsampler (CUDA
-    events over ``calls`` warm calls)."""
-    import torch
-    with torch.inference_mode():
-        return time_ms(lambda: up(x, **kwargs), iters=calls, warmup=1)
+    print(f"bev2d phase: {time.perf_counter() - t_phase:.2f}s")
 
 
 def visibility_flips(cfg, w2p, shift):
@@ -3781,18 +2693,13 @@ def visibility_flips(cfg, w2p, shift):
 
 def headline_path(card):
     """Phase 13: the 36-view headline (``vln_ver_tpu_torch.bench``), then
-    ``check_determinism`` and ``bench_train`` at their defaults.  Returns
-    ({run: (forward launches, backward launches), "occ": {run: the
-    occupancy MLP kernel's launches}}, numbers)."""
-    import dataclasses
-    import math
-    import tempfile
-
+    ``check_determinism`` at its defaults.  Returns its numbers."""
     import torch
 
-    from vln_ver_tpu_torch import bench, bench_train, check_determinism
+    from vln_ver_tpu_torch import bench, check_determinism
     from vln_ver_tpu_torch.models import VERConfig, VoxelFormer, build_model
     from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    from vln_ver_tpu_torch.ops.occ_mlp import KERNEL as OCC
 
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
@@ -3817,31 +2724,26 @@ def headline_path(card):
 
     heads = ("bev_embed", "occupancy_preds", "all_cls_scores",
              "all_bbox_preds")
-    occ = {}
     for cap in (qcap, 0):
         model = on_card(torch.bfloat16, cap)
-        KERNEL.launches = KERNEL_BWD.launches = 0
-        with torch.inference_mode(), occ_launches() as occ[cap]:
+        KERNEL.launches = KERNEL_BWD.launches = OCC.launches = 0
+        with torch.inference_mode(), planned() as nq:
             outs = model(*ins)
             torch.cuda.synchronize()
-        got = (KERNEL.launches, KERNEL_BWD.launches, KERNEL.last_nq,
-               occ[cap]["calls"], occ[cap]["launches"])
-        want = (model.cfg.encoder_layers, 0, cap or model.cfg.bev_num, 1, 2)
+        got = (KERNEL.launches, KERNEL_BWD.launches, nq["fwd"],
+               OCC.launches)
+        want = (model.cfg.encoder_layers, 0, cap or model.cfg.bev_num, 2)
         overflow = int(outs["sca_overflow"])
         bad = [k for k in heads if not bool(torch.isfinite(
             outs[k].float()).all())]
         print(f"headline bf16 forward at batch {HEADLINE_BATCH}, capacity "
-              f"{cap}: (forward, backward launches, nq, occupancy calls, "
-              f"occupancy MLP launches) {got}, expected "
-              f"{want}; sca_overflow {overflow}; non-finite {bad}; "
-              f"shapes {[tuple(outs[k].shape) for k in heads]}")
+              f"{cap}: (forward, backward launches, nq, occupancy MLP "
+              f"launches) {got}, expected {want}; sca_overflow {overflow}; "
+              f"non-finite {bad}; shapes "
+              f"{[tuple(outs[k].shape) for k in heads]}")
         if got != want or overflow or bad:
             fail(f"the 36-view forward at capacity {cap}")
-        del outs
-        if cap:
-            breakdown_numbers, upsampler = headline_breakdown(model, ins,
-                                                              card)
-        del model
+        del outs, model
     # the sparse lift against the dense one in fp32, and against the CPU
     bevs = {}
     for cap in (0, qcap):
@@ -3879,89 +2781,94 @@ def headline_path(card):
     del model, bevs, cpu_model, weights, card1, cpu1
     torch.cuda.empty_cache()
 
-    launches = {"occ": {"forward": occ[qcap]["launches"],
-                        "forward_dense": occ[0]["launches"]}}
-    data_dir = tempfile.mkdtemp(prefix="chip_smoke_bench_")
-    try:
-        KERNEL.launches = KERNEL_BWD.launches = 0
-        with memory_h5(), occ_launches() as occ["bench"]:
-            line = bench.main(["--data-dir", data_dir])
-        launches["bench"] = (KERNEL.launches, KERNEL_BWD.launches)
-    finally:
-        shutil.rmtree(data_dir, ignore_errors=True)
-        for key in [k for k in _MemoryH5.files if k.startswith(data_dir)]:
-            del _MemoryH5.files[key]
-    missing = [k for k in ("value", "value_batch4", "spread",
-                           "e2e_volumes_per_sec", "e2e_from_images",
-                           "card", "peak_mib") if line.get(k) is None]
-    if (missing or line["qcap"] != HEADLINE_QCAP
-            or launches["bench"][0] % 3 or not launches["bench"][0]
-            or launches["bench"][1]):
-        fail(f"the bench line lacks {missing} or launched "
-             f"{launches['bench']} (3 forward launches a call, no backward)")
-    print(f"headline: bench.main launched the forward kernel "
-          f"{launches['bench'][0]} times (3 a forward), the backward "
-          f"{launches['bench'][1]}, the occupancy MLP kernel "
-          f"{occ['bench']['launches']} over {occ['bench']['calls']} calls of "
-          f"the head's occupancy path (2 a call) [{card}]")
-    if (not occ["bench"]["calls"]
-            or occ["bench"]["launches"] != 2 * occ["bench"]["calls"]):
-        fail(f"bench.main: the occupancy MLP kernel launched "
-             f"{occ['bench']['launches']} times over "
-             f"{occ['bench']['calls']} calls (2 a call)")
-    launches["occ"]["bench"] = occ["bench"]["launches"]
-    torch.cuda.empty_cache()
-
-    KERNEL.launches = KERNEL_BWD.launches = 0
-    with occ_launches() as occ["determinism"]:
-        det = check_determinism.run(check_determinism.parse_args([]))
-    launches["determinism"] = (KERNEL.launches, KERNEL_BWD.launches)
-    launches["occ"]["determinism"] = occ["determinism"]["launches"]
+    KERNEL.launches = KERNEL_BWD.launches = OCC.launches = 0
+    det = check_determinism.run(check_determinism.parse_args([]))
     runs = len(det["prints"])
-    if (launches["determinism"] != (3 * runs, 0)
-            or occ["determinism"]["calls"] != runs
-            or occ["determinism"]["launches"] != 2 * runs):
-        fail(f"check_determinism launched {launches['determinism']} and the "
-             f"occupancy MLP kernel {occ['determinism']['launches']} times "
-             f"over {occ['determinism']['calls']} calls, expected (3 x "
-             f"{runs} runs, 0) and 2 x {runs}")
+    got = (KERNEL.launches, KERNEL_BWD.launches, OCC.launches)
+    if got != (3 * runs, 0, 2 * runs):
+        fail(f"check_determinism launched (forward, backward, occupancy "
+             f"MLP) {got}, expected (3, 0, 2) x {runs} runs")
     print(f"check_determinism (36 cameras, bf16, batch 2, {runs} runs): "
           f"bitwise deterministic {det['bitwise_deterministic']}, outputs "
-          f"that differ {det['differs']} [{card}]")
+          f"that differ {det['differs']}, launches (forward, backward, "
+          f"occupancy MLP) {got} [{card}]")
+    torch.cuda.empty_cache()
+    headline_train_and_dump(base, qcap, w2p, shift, dev)
+    print(f"headline phase: {time.perf_counter() - t_phase:.2f}s")
+    return dict(determinism={k: det[k] for k in ("bitwise_deterministic",
+                                                 "differs")},
+                sparse_vs_dense_err=err, card_vs_cpu_err=cpu_err,
+                visibility_flips=int(flipped.sum()))
+
+
+def headline_train_and_dump(base, qcap, w2p, shift, dev):
+    """Phase 13's untimed runs of the 36-view bf16 paths that nothing else
+    drives on the card: one train step of ``base`` at batch 2 (dense lift,
+    ``bench_train``'s synthetic batch), which must launch each deform
+    kernel once a layer, never the occupancy MLP kernel (autograd on), and
+    give a finite loss; then the ViT -> lift dump (``make_bev_only`` with a
+    bf16 ViT-B/16 through ``dump_volumes`` into ``verbench.h5mem``) of two
+    batches of viewpoints at the rig's capacity ``qcap``, which must write
+    each volume finite with no overflow, launch the forward kernel once a
+    layer a batch and nothing else."""
+    import torch
+
+    from vln_ver_tpu_torch.bench_train import synthetic_batch
+    from vln_ver_tpu_torch.get_occ import make_bev_only
+    from vln_ver_tpu_torch.models import build_model
+    from vln_ver_tpu_torch.models.vit import vit_for_ver
+    from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
+    from vln_ver_tpu_torch.ops.occ_mlp import KERNEL as OCC
+    from vln_ver_tpu_torch.train.feed import to_device
+    from vln_ver_tpu_torch.train.state import TrainConfig, create_train_state
+    from vln_ver_tpu_torch.train.step import make_train_step
+    from vln_ver_tpu_torch.ver_writer import dump_volumes
+
+    layers = base.encoder_layers
+    tc = TrainConfig(warmup_steps=10, total_steps=1000)
+    state = create_train_state(build_model(base, dev, seed=0), tc)
+    batch = to_device(synthetic_batch(base, 2, 16), dev)
+    KERNEL.launches = KERNEL_BWD.launches = OCC.launches = 0
+    loss = float(make_train_step(base, tc)(state, batch, 1)["loss"])
+    got = (KERNEL.launches, KERNEL_BWD.launches, OCC.launches)
+    print(f"headline bf16 train step at batch 2: loss {loss:.4f}, launches "
+          f"(forward, backward, occupancy MLP) {got}, expected "
+          f"{(layers, layers, 0)}")
+    if got != (layers, layers, 0) or not math.isfinite(loss):
+        fail("the 36-view bf16 train step")
+    del state, batch
     torch.cuda.empty_cache()
 
-    KERNEL.launches = KERNEL_BWD.launches = 0
-    with occ_launches() as occ["bench_train"]:
-        train = bench_train.main(["--iters", "2"])
-    launches["bench_train"] = (KERNEL.launches, KERNEL_BWD.launches)
-    launches["occ"]["bench_train"] = occ["bench_train"]["launches"]
-    steps = train["steps_run"]
-    if (launches["bench_train"] != (3 * steps, 3 * steps)
-            or occ["bench_train"]["launches"]
-            or not math.isfinite(train["last_loss"])):
-        fail(f"bench_train: launches {launches['bench_train']} over {steps} "
-             f"steps (3 + 3 a step), the occupancy MLP kernel "
-             f"{occ['bench_train']['launches']} (none: autograd on), last "
-             f"loss {train['last_loss']}")
-    print(f"check_determinism and bench_train: the occupancy MLP kernel "
-          f"{launches['occ']['determinism']} and "
-          f"{launches['occ']['bench_train']} launches [{card}]")
+    cfg = dataclasses.replace(base, sca_query_capacity=qcap)
+    model = build_model(cfg, dev, seed=0).eval()
+    vit = vit_for_ver(cfg, dtype=torch.bfloat16)
+    vit.init_weights(torch.Generator().manual_seed(1))
+    vit = vit.to(dev).eval()
+    n = 2 * len(w2p)
+    size = vit.image_size
+    images = np.random.default_rng(6).integers(
+        0, 256, (n, cfg.num_cams, size, size, 3)).astype(np.uint8)
+    dataset = [dict(images=images[i], world2pixel=w2p[i % len(w2p)],
+                    origin_shift=shift[i % len(w2p)], token=f"vp{i:02d}")
+               for i in range(n)]
+    store = MemoryH5()
+    store.keep = {d["token"] for d in dataset}
+    KERNEL.launches = KERNEL_BWD.launches = OCC.launches = 0
+    with store.installed():
+        res = dump_volumes(make_bev_only(model, vit), dataset, cfg,
+                           "headline_images.hdf5", batch_size=len(w2p),
+                           device=dev, input_key="images")
+    got = (KERNEL.launches, KERNEL_BWD.launches, OCC.launches)
+    bad = [k for k, v in store.kept.items() if not np.isfinite(v).all()]
+    print(f"headline bf16 ViT -> lift dump of {n} viewpoints at batch "
+          f"{len(w2p)}: {res['written']} volumes written, sca_overflow "
+          f"{res['sca_overflow']}, non-finite {bad}, launches (forward, "
+          f"backward, occupancy MLP) {got}, expected {(2 * layers, 0, 0)}")
+    if (res["written"] != n or len(store.kept) != n or res["sca_overflow"]
+            or bad or got != (2 * layers, 0, 0)):
+        fail("the 36-view bf16 image dump")
+    del model, vit, store
     torch.cuda.empty_cache()
-    # the same upsampler call again at the end of the phase: its time has
-    # been seen to differ within one process
-    breakdown_numbers["upsampler_alone_ms_at_phase_end"] = upsampler_ms(
-        *upsampler)
-    print(f"headline: the upsampler alone at the end of the phase "
-          f"{breakdown_numbers['upsampler_alone_ms_at_phase_end']:.3f} ms "
-          f"[{card}]")
-    del upsampler
-    numbers = dict(bench=line, determinism={
-        k: det[k] for k in ("bitwise_deterministic", "differs")},
-        bench_train=train, sparse_vs_dense_err=err, card_vs_cpu_err=cpu_err,
-        visibility_flips=int(flipped.sum()), breakdown=breakdown_numbers,
-        seconds=time.perf_counter() - t_phase)
-    print(f"headline phase: {numbers['seconds']:.2f}s [{card}]")
-    return launches, numbers
 
 
 def main() -> None:
@@ -4062,7 +2969,8 @@ def main() -> None:
             ref = plain_forward(v, (H, W), loc, w)
             torch.cuda.synchronize()
             err, ok = close(got.float(), ref, rtol, atol)
-            plan = KERNEL.last_plan
+            plan = KERNEL.plan(bs, heads, nq, H * W, dd, v.element_size(),
+                               dev)
             print(f"kernel check {name}: max_abs_err={err:.3e} "
                   f"(rtol={rtol}, atol={atol}) {'ok' if ok else 'FAIL'} "
                   f"[ctas {plan.ctas}, chunk {plan.chunk}, stages "
@@ -4094,7 +3002,8 @@ def main() -> None:
             errs[key], ok = close(a.float(), r, *bwd_tolerance[dt][key])
             if not ok:
                 bad.append(key)
-        plan = KERNEL_BWD.last_plan
+        plan = KERNEL_BWD.plan(bs, heads, nq, H * W, dd, v.element_size(),
+                               dev, True, True)
         print(f"backward kernel check {name}: " + ", ".join(
             f"{k} max_abs_err={e:.3e} (rtol={bwd_tolerance[dt][k][0]}, "
             f"atol={bwd_tolerance[dt][k][1]})" for k, e in errs.items())
@@ -4143,16 +3052,9 @@ def main() -> None:
             vols.append(volumes_from_bev(host, ver))
         return vols, bevs
 
-    run_main_path()   # warm-up: allocator, cuBLAS handles
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     KERNEL.launches = KERNEL_BWD.launches = 0
-    t0 = time.perf_counter()
     vols, bevs = run_main_path()
-    torch.cuda.synchronize()
-    main_s = time.perf_counter() - t0
     launches, bwd_launches = KERNEL.launches, KERNEL_BWD.launches
-    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
     n_batches = -(-N_VIEWPOINTS // BATCH)
     if launches != ver.encoder_layers * n_batches:
         fail(f"deform_attn_2d launched {launches} times on the main path, "
@@ -4166,10 +3068,8 @@ def main() -> None:
             fail(f"volume batch {vol.shape} {vol.dtype}, want (B,)+{shape}")
         if not np.isfinite(vol).all():
             fail("non-finite values in the VER volumes")
-    print(f"main path: {N_VIEWPOINTS} volumes of {shape} in {main_s:.4f}s "
-          f"= {N_VIEWPOINTS / main_s:.2f} volumes/s at batch {BATCH}, "
-          f"peak device memory {peak_mib:.1f} MiB, deform launches "
-          f"{launches} [{card}]")
+    print(f"main path: {N_VIEWPOINTS} volumes of {shape} at batch {BATCH}, "
+          f"deform launches {launches}")
 
     cpu_model = build_model(ver, "cpu", seed=0)
     with torch.inference_mode():
@@ -4183,20 +3083,16 @@ def main() -> None:
           f"{'ok' if ok else 'FAIL'}")
     if not ok:
         fail("card bev_embed disagrees with the CPU run")
-    breakdown(run_main_path, bev_only, feats, w2p, shift, ver, card)
     dense_vols = np.concatenate(vols)
 
     # -- phase 4b-4d: the sparse lift, the int8 upload, the image path ----
-    extra = sparse_lift(model, ver, feats, w2p, shift, dense_vols,
-                        N_VIEWPOINTS / main_s, card)
+    extra = sparse_lift(model, ver, feats, w2p, shift, dense_vols, card)
     # the seed-0 weights, kept for phase 10c's models
     seed0_weights = cpu_model.state_dict()
-    extra.update(int8_upload(model, cpu_model, ver, feats, w2p, shift,
-                             dense_vols, card))
+    extra["int8_max_dev_from_fp32"] = int8_upload(
+        model, cpu_model, ver, feats, w2p, shift, dense_vols)
     del cpu_model
-    image_extra, images, image_vols = image_path(model, ver, w2p, shift,
-                                                 card)
-    extra.update(image_extra)
+    images, image_vols = image_path(model, ver, w2p, shift)
 
     # -- phase 5: kernel timing ------------------------------------------
     H = W = ver.feat_h
@@ -4211,8 +3107,9 @@ def main() -> None:
                 ms = time_graph_ms(lambda: KERNEL(v, ((H, W),), loc, w))
                 eager_ms = time_ms(lambda: KERNEL(v, ((H, W),), loc, w))
                 name = f"B={B} {str(dt).split('.')[-1]}"
-                plans[name] = KERNEL.last_plan._asdict()
-                bound_ms, bound_by = deform_bound(v, loc, w, (H, W))
+                plans[name] = KERNEL.plan(bs, heads, nq, H * W, d,
+                                          v.element_size(), dev)._asdict()
+                bound_ms, bound_by = deform_bound(v, loc, (H, W))
                 floor_ms = smem_floor_ms(v, loc, (H, W))
                 plain_ms = None
                 if dt is f32:
@@ -4241,8 +3138,10 @@ def main() -> None:
             ms = time_graph_ms(lambda: KERNEL_BWD(v, ((H, W),), loc, w, g))
             eager_ms = time_ms(lambda: KERNEL_BWD(v, ((H, W),), loc, w, g))
             name = f"B={B} {str(dt).split('.')[-1]}"
-            bwd_plans[name] = KERNEL_BWD.last_plan._asdict()
-            bound_ms, bound_by = deform_bwd_bound(v, loc, w, (H, W))
+            plan = KERNEL_BWD.plan(bs, heads, nq, H * W, d, v.element_size(),
+                                   dev, True, True)
+            bwd_plans[name] = plan._asdict()
+            bound_ms, bound_by = deform_bound(v, loc, (H, W), backward=True)
             floor_ms = smem_floor_ms(v, loc, (H, W), backward=True)
             plain_ms = None
             if dt is f32:
@@ -4256,7 +3155,6 @@ def main() -> None:
             bwd_timing[name] = (ms, eager_ms, plain_ms, bound_ms, bound_by,
                                 floor_ms)
             plain = "" if plain_ms is None else f", plain {plain_ms:.4f} ms"
-            plan = KERNEL_BWD.last_plan
             print(f"deform_attn_2d_backward {name} (bs={bs}): kernel "
                   f"{ms:.4f} ms (graph; eager {eager_ms:.4f} ms){plain}, "
                   f"bound {bound_ms:.4f} ms ({bound_by}), "
@@ -4292,16 +3190,14 @@ def main() -> None:
     print(json.dumps({"occ_mlp": {**occ_mlp, "card": card}}))
 
     # -- phase 6: full forward and eval ------------------------------------
-    launches_eval, bwd_launches_eval, samples = full_forward_and_eval(
-        model, ver, card)
+    samples = full_forward_and_eval(model, ver)
     del model
 
     # -- phase 7: training -------------------------------------------------
-    launches_train, bwd_launches_train, train_extra = training(
-        ver, samples, card)
+    training(ver, samples, card)
 
     # -- phase 8: VER volumes -> the VLN agent's greedy evaluation ---------
-    agent, agent_env = agent_path(ver, card)
+    agent, agent_env = agent_path(ver)
     print(json.dumps({"agent": {**agent, "card": card}}))
 
     # -- phase 9: the agent's training on phase 8's volumes -----------------
@@ -4309,52 +3205,36 @@ def main() -> None:
     print(json.dumps({"agent_train": {**agent_train, "card": card}}))
 
     # -- phase 10: the server on the card ----------------------------------
-    launches_serve, serve_numbers = serving(
-        ver, feats, w2p, shift, dense_vols, images, image_vols, samples,
-        card)
-    print(json.dumps({"serve": {**serve_numbers, "card": card}}))
+    serving(ver, feats, w2p, shift, dense_vols, images, image_vols, samples)
 
     # -- phase 10b: NCCL of world 1: mesh dumps, train, eval, agent eval ---
-    launches_mesh, bwd_launches_mesh = mesh_world_one(
-        ver, feats, w2p, shift, dense_vols, samples, agent_env, card)
+    mesh_world_one(ver, feats, w2p, shift, dense_vols, samples, agent_env,
+                   card)
 
     # -- phase 10c: NCCL of world 1: TP and multi-slice steps, pipeline ---
-    grid_launches, grid_numbers = grids_world_one(ver, seed0_weights,
-                                                  samples, card)
+    grid_numbers = grids_world_one(ver, seed0_weights, samples, card)
     del seed0_weights
     print(json.dumps({"grids": {**grid_numbers, "card": card}}))
 
     # -- phase 11: temporal VER (TSA) and decoder_on_bev -------------------
-    temporal_launches, temporal_numbers = temporal_path(ver, samples, card)
-    print(json.dumps({"temporal": {**temporal_numbers, "card": card}}))
+    temporal_path(ver, samples, card)
 
     # -- phase 12: BEVFormer-2D over synthetic nuScenes scenes -------------
-    bev2d_launches, bev2d_numbers = bev2d_path(card)
-    print(json.dumps({"bev2d": {**bev2d_numbers, "card": card}}))
+    bev2d_path()
     print(json.dumps({"gather": {**gather_shapes(card), "card": card}}))
 
-    # -- phase 13: the 36-view headline, determinism, bench_train ----------
-    headline_launches, headline_numbers = headline_path(card)
-    print(json.dumps({"headline": {
-        k: v for k, v in headline_numbers.items() if k != "bench"}}))
+    # -- phase 13: the 36-view headline and check_determinism --------------
+    print(json.dumps({"headline": headline_path(card)}))
 
     ms, eager_ms, plain_ms, bound_ms, bound_by, floor_ms = timing[
         "B=1 float32"]
     ms4, eager_ms4, plain_ms4, bound_ms4, _, floor_ms4 = timing[
         "B=4 float32"]
-    # "launches" in both entries is the count over the timed train steps
-    # (phase 7, the training path); "launches_dump", "launches_eval" and
-    # the rest are the counts of phases 4, 4b-4d, 6 and 7's remat and
-    # capacity steps, each read from that run alone
     print(json.dumps({"kernels": [{
         "name": "deform_attn_2d",
         "route": "cuda",
         "source": "vln_ver_tpu_torch/csrc/deform_attn_2d.cu",
         "replaces": "vln_ver_tpu/ops/pallas_deform.py:38",
-        "launches": launches_train,
-        "launches_dump": launches,
-        "launches_eval": launches_eval,
-        "launches_train": launches_train,
         "max_abs_err": main_err,
         "ms": ms,
         "plain_ms": plain_ms,
@@ -4372,24 +3252,6 @@ def main() -> None:
         "ms_bf16": timing["B=1 bfloat16"][0],
         "ms_bf16_b4": timing["B=4 bfloat16"][0],
         **extra,
-        "launches_train_remat": train_extra["fwd_remat"],
-        "launches_train_capacity": train_extra["fwd_capacity"],
-        "launches_agent": agent["launches_agent"],
-        "launches_agent_train": agent_train["launches_fwd"],
-        "launches_serve": launches_serve,
-        "launches_mesh": launches_mesh,
-        "launches_tp": grid_launches["tp"][0],
-        "launches_multislice": grid_launches["multislice"][0],
-        "launches_pipeline": grid_launches["pipeline"][0],
-        "launches_temporal": temporal_launches["history"],
-        "launches_decoder_on_bev": temporal_launches["decoder_on_bev"],
-        "launches_temporal_train": temporal_launches["train"][0],
-        "launches_bev2d": bev2d_launches["b4"],
-        "launches_bev2d_b1": bev2d_launches["b1"],
-        "launches_bev2d_train": bev2d_launches["backward"][0],
-        "launches_bench": headline_launches["bench"][0],
-        "launches_determinism": headline_launches["determinism"][0],
-        "launches_bench_train": headline_launches["bench_train"][0],
         "path_shapes": {k: {n: v for n, v in r.items()
                             if not n.startswith("bwd_")}
                         for k, r in path_timing.items()},
@@ -4402,10 +3264,6 @@ def main() -> None:
         "route": "cuda",
         "source": "vln_ver_tpu_torch/csrc/deform_attn_2d_bwd.cu",
         "replaces": "vln_ver_tpu/ops/pallas_deform.py:237",
-        "launches": bwd_launches_train,
-        "launches_dump": bwd_launches,
-        "launches_eval": bwd_launches_eval,
-        "launches_train": bwd_launches_train,
         "max_abs_err": max(bwd_main_errs.values()),
         "max_abs_err_dvalue": bwd_main_errs["dvalue"],
         "max_abs_err_dlocations": bwd_main_errs["dlocations"],
@@ -4426,27 +3284,6 @@ def main() -> None:
         "smem_floor_ms_b4": bwd_timing["B=4 float32"][5],
         "ms_bf16": bwd_timing["B=1 bfloat16"][0],
         "ms_bf16_b4": bwd_timing["B=4 bfloat16"][0],
-        "launches_dump_sparse": 0,
-        "launches_dump_int8": 0,
-        "launches_images": 0,
-        "launches_train_remat": train_extra["bwd_remat"],
-        "launches_train_capacity": train_extra["bwd_capacity"],
-        "launches_agent": 0,
-        "launches_agent_train": agent_train["launches_bwd"],
-        "launches_serve": 0,
-        "launches_mesh": bwd_launches_mesh,
-        "launches_tp": grid_launches["tp"][1],
-        "launches_multislice": grid_launches["multislice"][1],
-        "launches_pipeline": grid_launches["pipeline"][1],
-        "launches_temporal": 0,
-        "launches_decoder_on_bev": 0,
-        "launches_temporal_train": temporal_launches["train"][1],
-        "launches_bev2d": 0,
-        "launches_bev2d_b1": 0,
-        "launches_bev2d_train": bev2d_launches["backward"][1],
-        "launches_bench": headline_launches["bench"][1],
-        "launches_determinism": headline_launches["determinism"][1],
-        "launches_bench_train": headline_launches["bench_train"][1],
         "path_shapes": {k: {n[4:]: v for n, v in r.items()
                             if n.startswith("bwd_")}
                         for k, r in path_timing.items()},
@@ -4460,12 +3297,6 @@ def main() -> None:
         "route": "cuda",
         "source": "vln_ver_tpu_torch/csrc/occ_mlp.cu",
         "replaces": None,
-        "launches_headline_forward": headline_launches["occ"]["forward"],
-        "launches_headline_forward_dense":
-            headline_launches["occ"]["forward_dense"],
-        "launches_bench": headline_launches["occ"]["bench"],
-        "launches_determinism": headline_launches["occ"]["determinism"],
-        "launches_bench_train": headline_launches["occ"]["bench_train"],
         "max_abs_err": occ_mlp["B=1"]["max_abs_err"],
         "ms": occ_mlp["B=1"]["ms"],
         "bound_ms": occ_mlp["B=1"]["bound_ms"],

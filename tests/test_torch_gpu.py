@@ -268,7 +268,8 @@ def test_backward_kernel_is_reproducible(cuda):
     a = KERNEL_BWD(v, ((14, 14),), locs, wsm, g)
     b = KERNEL_BWD(v, ((14, 14),), locs, wsm, g)
     torch.cuda.synchronize()
-    assert KERNEL_BWD.last_plan.qsplit > 1
+    assert KERNEL_BWD.plan(6, 8, 900, 14 * 14, 96, v.element_size(), cuda,
+                           True, True).qsplit > 1
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 
@@ -582,6 +583,7 @@ def test_sparse_lift_on_card_matches_dense_and_cpu(cuda):
     to the CPU's sparse lift within 1e-4, with a zero overflow."""
     import dataclasses
 
+    from chip_smoke import planned
     from vln_ver_tpu_torch.geometry import max_visible_queries
     feats, w2p, shift = _viewpoints(2)
     need = max_visible_queries(w2p, shift, TINY.bev_z, TINY.bev_h,
@@ -592,12 +594,15 @@ def test_sparse_lift_on_card_matches_dense_and_cpu(cuda):
         dense = build_model(TINY, cuda)(*(t.to(cuda) for t in x),
                                         only_bev=True)
         before = KERNEL.launches
-        got = build_model(cfg, cuda)(*(t.to(cuda) for t in x),
-                                     only_bev=True)
+        # the query count of every launch, as the kernel plans it
+        with planned(every=True) as nqs:
+            got = build_model(cfg, cuda)(*(t.to(cuda) for t in x),
+                                         only_bev=True)
         torch.cuda.synchronize()
         launches = KERNEL.launches - before
         cpu = build_model(cfg, "cpu")(*x, only_bev=True)
-    assert launches == cfg.encoder_layers and KERNEL.last_nq == need
+    assert launches == cfg.encoder_layers
+    assert nqs["fwd"] == [need] * cfg.encoder_layers
     assert int(got["sca_overflow"]) == 0
     torch.testing.assert_close(got["bev_embed"], dense["bev_embed"],
                                rtol=1e-4, atol=1e-4)
@@ -691,7 +696,7 @@ def test_agent_batched_greedy_rollout_on_card_matches_cpu(cuda, tmp_path):
         bev_num=32, embed_dims=cfg.embed_dims, vocab=cfg.vocab_size,
         max_text_len=cfg.max_text_len, seed=1)
     env = R2REnv(episodes, graphs, ver, max_nodes=cfg.max_nodes)
-    with PolicyCalls(card, record=True) as rec:
+    with PolicyCalls(card) as rec:
         got, _ = run_episodes_batched(card, env, list(range(8)), cfg)
     held = replay(rec.calls, cpu)
     assert held["steps"] and held["compared"] > 0
@@ -762,8 +767,13 @@ def test_agent_pretrain_update_on_card_matches_cpu(cuda, tmp_path):
 def test_temporal_models_on_card_match_cpu(cuda):
     """A TSA config with decoder_on_bev (mlp): the history roll over two
     frames and the full forward with prev_bev and tsa_shift, card against
-    CPU; the SCA launches once a layer a frame, the decoder once a
-    layer."""
+    CPU; the SCA launches once a layer a frame, the decoder once a layer.
+    The forward captures the decoder's CUDA graph, so its launches go out
+    from the host twice (the warm-up and the capture), and one replay
+    serves the call (the recorder's ``decoder#graph_replays``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vln_ver_tpu_torch.utils.profiling import recorded
     cfg = dataclasses.replace(TINY, use_temporal_self_attn=True,
                               decoder_on_bev=True)
     feats, w2p, shift = map(torch.from_numpy, _viewpoints(4))
@@ -773,12 +783,16 @@ def test_temporal_models_on_card_match_cpu(cuda):
         model = build_model(cfg, dev)
         before = KERNEL.launches
         prev = model.obtain_history_bev(*(t.to(dev) for t in queue))
-        with torch.inference_mode():
+        with torch.inference_mode(), \
+                profile(activities=[ProfilerActivity.CPU]):
             outs = model(*(t[:, -1].to(dev) for t in queue), prev_bev=prev,
                          tsa_shift=torch.full((2, 3), 0.05, device=dev))
-        res[str(dev)] = (prev, outs, KERNEL.launches - before)
-    (p0, o0, n0), (p1, o1, n1) = res["cpu"], res[str(cuda)]
-    assert n0 == 0 and n1 == 3 * cfg.encoder_layers + cfg.decoder_layers
+        res[str(dev)] = (prev, outs, KERNEL.launches - before,
+                         recorded()["counters"].get("decoder#graph_replays"))
+    (p0, o0, n0, r0), (p1, o1, n1, r1) = res["cpu"], res[str(cuda)]
+    assert n0 == 0 and r0 is None
+    assert n1 == 3 * cfg.encoder_layers + 2 * cfg.decoder_layers
+    assert r1 == 1.0
     torch.testing.assert_close(p1.cpu(), p0, rtol=1e-4, atol=1e-4)
     for k in ("bev_embed", "all_cls_scores", "all_bbox_preds"):
         torch.testing.assert_close(o1[k].cpu(), o0[k], rtol=1e-4, atol=1e-4)

@@ -22,6 +22,7 @@ from verbench import program_spans
 from verbench.trace import _events
 from vln_ver_tpu_torch import geometry
 from vln_ver_tpu_torch.matching import _CHECK_EVERY, _auction
+from vln_ver_tpu_torch.models.attention import lift_overflow
 from vln_ver_tpu_torch.models.detector import build_model
 from vln_ver_tpu_torch.train import (TrainConfig, create_train_state,
                                      make_train_step)
@@ -183,6 +184,25 @@ def test_model_forward_emits_the_model_spans_and_lift_counters():
     assert rec["counters"]["lift#visible_queries"] == float(want)
     assert rec["counters"]["lift#query_slots"] == float(
         per_cam.size * cfg.sca_query_capacity)
+
+
+@pytest.mark.parametrize("below", [1, 0, -1],
+                         ids=["below", "at", "above"])
+def test_lift_overflow_counts_and_reports_the_worst_slot(below):
+    """``models.attention.lift_overflow`` at a capacity below, at and
+    above the worst (sample, camera) slot's visible queries: the overflow
+    an int64 device scalar, the counters the capped visible queries and
+    every slot's capacity."""
+    gen = torch.Generator().manual_seed(3)
+    mask = torch.rand((2, 3, 40, 2), generator=gen) < 0.3
+    per_slot = mask.any(dim=-1).sum(dim=-1).numpy()     # (B, cams)
+    cap = int(per_slot.max()) - below
+    ovf, _, rec = _profiled(lambda: lift_overflow(mask, cap))
+    assert ovf.dtype == torch.int64 and ovf.dim() == 0
+    assert int(ovf) == max(below, 0)
+    assert rec["counters"]["lift#visible_queries"] == float(
+        np.minimum(per_slot, cap).sum())
+    assert rec["counters"]["lift#query_slots"] == float(per_slot.size * cap)
 
 
 def test_dense_lift_counts_nothing():

@@ -1,7 +1,7 @@
 """The policy's step on the card held against the CPU port: record every
-call a policy makes (its inputs and outputs copied to the host, and CUDA
-events around each call when ``timed``), then replay each call on a CPU
-copy of the policy with the same weights and compare.
+call a policy makes (its inputs and outputs copied to the host), then
+replay each call on a CPU copy of the policy with the same weights and
+compare.
 
 The bounds are those of fp32 on the card with TF32 off: the logits, their
 log-softmax over the unmasked actions and ``state_pred`` within ``RTOL`` /
@@ -49,33 +49,17 @@ def to_host(tree):
 
 
 class PolicyCalls:
-    """Forward hooks on the policy, as a context manager.  With ``record``,
-    ``calls`` gathers ``[args, kwargs, output]`` of every call on the host;
-    with ``timed``, CUDA events around every call (:meth:`device_ms`).
-    ``first[i]`` says whether call ``i`` encoded the instruction (no
-    ``text_feats`` passed in)."""
+    """Forward hooks on the policy, as a context manager: ``calls``
+    gathers ``[args, kwargs, output]`` of every call on the host."""
 
-    def __init__(self, policy, record: bool = False, timed: bool = False):
+    def __init__(self, policy):
         self.calls: List[list] = []
-        self.events: List[list] = []
-        self.first: List[bool] = []
 
         def pre(mod, args, kwargs):
-            self.first.append(kwargs.get("text_feats") is None)
-            if timed:
-                start = torch.cuda.Event(enable_timing=True)
-                start.record()
-                self.events.append([start])
-            if record:
-                self.calls.append([to_host(args), to_host(kwargs)])
+            self.calls.append([to_host(args), to_host(kwargs)])
 
         def post(mod, args, kwargs, out):
-            if timed:
-                end = torch.cuda.Event(enable_timing=True)
-                end.record()
-                self.events[-1].append(end)
-            if record:
-                self.calls[-1].append(to_host(out))
+            self.calls[-1].append(to_host(out))
 
         self._hooks = [policy.register_forward_pre_hook(pre, with_kwargs=True),
                        policy.register_forward_hook(post, with_kwargs=True)]
@@ -87,11 +71,6 @@ class PolicyCalls:
         for h in self._hooks:
             h.remove()
         return False
-
-    def device_ms(self) -> List[float]:
-        """Per call: the ms between its events (host launches included)."""
-        torch.cuda.synchronize()
-        return [a.elapsed_time(b) for a, b in self.events]
 
 
 def _within(name, got, ref, rtol, atol) -> float:

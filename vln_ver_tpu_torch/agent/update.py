@@ -12,7 +12,7 @@ decays it as optax does), with a flat schedule.
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Tuple
 
 import torch
 from torch import nn
@@ -32,22 +32,11 @@ def make_train_state(model: nn.Module, lr: float) -> TrainState:
         min_lr_ratio=1.0, grad_clip_norm=CLIP_NORM))
 
 
-def mark(stages: Optional[List], name: str) -> None:
-    """Where ``stages`` is a list, append ``(name, CUDA event)`` recorded
-    on the current stream: the end of the stage ``name``."""
-    if stages is not None:
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        stages.append((name, ev))
-
-
 def update(state: TrainState,
-           loss_fn: Callable[[], Tuple[torch.Tensor, Dict]],
-           stages: Optional[List] = None, mesh=None):
+           loss_fn: Callable[[], Tuple[torch.Tensor, Dict]], mesh=None):
     """``loss_fn() -> (total, parts)``, its backward, the clip and one AdamW
     step; returns (total, parts, the gradient's global norm before the
-    clip), as tensors.  ``stages`` gathers the ends of ``"forward"``,
-    ``"backward"`` and ``"optimizer"`` (:func:`mark`).
+    clip), as tensors.
 
     With ``mesh`` (an ``(N, 1)`` ``parallel.mesh.Mesh``) the batch behind
     ``loss_fn`` is this rank's rows of the global batch: the loss runs
@@ -57,13 +46,10 @@ def update(state: TrainState,
     state.optimizer.zero_grad(set_to_none=True)
     with data_parallel(mesh):
         total, parts = loss_fn()
-        mark(stages, "forward")
         total.backward()
-    mark(stages, "backward")
     if mesh is not None:
         allreduce_grads(mesh, state.model.parameters())
     gnorm = state.apply_gradients()
-    mark(stages, "optimizer")
     keys = list(parts)
     losses = mean_over_data(mesh, torch.stack(
         [total.detach()] + [parts[k].detach() for k in keys]))

@@ -7,7 +7,8 @@
   for every camera and masks invisible contributions before the sum: the
   same result as the reference's per-camera rebatch and scatter-add, with
   static shapes.  With a query capacity K it runs the attention on each
-  camera's first K visible queries only (the sparse lift).
+  camera's first K visible queries only (the sparse lift), whose
+  callers take its overflow from :func:`lift_overflow`.
 * :class:`VoxelDeformableAttention3D` is the decoder's cross-attention,
   the reference VoxelCustomMSDeformableAttention (voxel_decoder.py:
   135-358): 3D offsets, trilinear sampling over the (z, h, w) voxel grid
@@ -24,12 +25,14 @@ import math
 from typing import Sequence, Tuple
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 from torch.distributed.nn.functional import all_reduce
 
 from ..ops.deform_attn import voxel_deform_attn_3d
 from ..ops.deform_cuda import ms_deform_attn_2d_fused
+from ..utils.profiling import count
 from .layers import Dense, Dropout
 
 
@@ -248,6 +251,27 @@ class SpatialCrossAttention(nn.Module):
         count = count.clamp_min(1.0)
         slots = (slots / count[..., None]).to(self.dtype)
         return self.dropout(self.output_proj(slots)) + residual
+
+
+def lift_overflow(mask: torch.Tensor, capacity: int,
+                  group=None) -> torch.Tensor:
+    """The sparse lift's bookkeeping of one call at query capacity
+    ``capacity``, from the (B, cams, nq, A) visibility mask: counts the
+    visible queries the slots hold, ``lift#visible_queries``, of
+    ``lift#query_slots`` in the recorder, and returns the visible queries
+    beyond ``capacity`` in the worst (sample, camera) slot, clamped at 0,
+    as an int64 scalar on the mask's device.  With ``group`` (the view
+    group, where the cameras are split over ranks) the worst slot is the
+    group's: an all-reduce with MAX."""
+    per_slot = mask.any(dim=-1).sum(dim=-1)                 # (B, cams)
+    count("lift#visible_queries",
+          lambda: per_slot.clamp_max(capacity).sum())
+    count("lift#query_slots", per_slot.numel() * capacity)
+    visible = per_slot.max()
+    if group is not None:
+        visible = visible.clone()
+        dist.all_reduce(visible, op=dist.ReduceOp.MAX, group=group)
+    return (visible - capacity).clamp_min(0)
 
 
 class VoxelDeformableAttention3D(nn.Module):

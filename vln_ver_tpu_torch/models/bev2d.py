@@ -47,7 +47,7 @@ from ..ops.sampling import bilinear_sample_2d
 from ..utils.profiling import count, span
 from .attention import (CamDeformableAttention, MultiheadAttention,
                         SpatialCrossAttention, _offset_grid_init_2d,
-                        _PackedAttention)
+                        _PackedAttention, lift_overflow)
 from .decoder import inverse_sigmoid
 from .encoder import FFN
 from .head import ClsBranch, Embedding, _UniformTable
@@ -401,11 +401,7 @@ class BEVFormerEncoder2D(nn.Module):
         cap = cfg.sca_query_capacity
         self.last_overflow = 0
         if cap and cap < cfg.bev_num:
-            per_slot = mask.any(dim=-1).sum(dim=-1)      # (B, cams)
-            count("lift#visible_queries",
-                  lambda: per_slot.clamp_max(cap).sum())
-            count("lift#query_slots", per_slot.numel() * cap)
-            self.last_overflow = (per_slot.max() - cap).clamp_min(0)
+            self.last_overflow = lift_overflow(mask, cap)
 
         ref_current = geometry.bev_reference_points(
             cfg.bev_h, cfg.bev_w, device=dev)[None, :, None, :].expand(

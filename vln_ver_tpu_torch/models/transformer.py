@@ -15,13 +15,12 @@ the max over z (``'pool'``).
 from __future__ import annotations
 
 import torch
-import torch.distributed as dist
 from torch import nn
 
 from .. import geometry
-from ..ops.deform_cuda import KERNEL
 from ..utils.cuda_graph import GraphCache
-from ..utils.profiling import count, span
+from ..utils.profiling import span
+from .attention import lift_overflow
 from .config import VERConfig
 from .decoder import VoxelDetectionDecoder
 from .encoder import VoxelEncoder
@@ -67,8 +66,7 @@ class VoxelTransformer(nn.Module):
             self.decoder = VoxelDetectionDecoder(cfg)
             # inference forwards on the card replay the decoder (with its
             # queries and the head's reg branches) from CUDA graphs
-            self.decoder_graphs = GraphCache(kernels=(KERNEL,),
-                                             name="decoder")
+            self.decoder_graphs = GraphCache(name="decoder")
             self.reference_points = Dense(cfg.embed_dims, 3)
 
     @torch.no_grad()
@@ -127,16 +125,8 @@ class VoxelTransformer(nn.Module):
         cap = cfg.sca_query_capacity
         overflow = 0
         if cap and cap < mask.shape[2]:
-            per_slot = mask.any(dim=-1).sum(dim=-1)      # (B, cams)
-            count("lift#visible_queries",
-                  lambda: per_slot.clamp_max(cap).sum())
-            count("lift#query_slots", per_slot.numel() * cap)
-            visible = per_slot.max()                      # worst slot
-            if self.views is not None:
-                visible = visible.clone()
-                dist.all_reduce(visible, op=dist.ReduceOp.MAX,
-                                group=self.views.group)
-            overflow = (visible - cap).clamp_min(0)
+            overflow = lift_overflow(
+                mask, cap, None if self.views is None else self.views.group)
 
         embed = self.encoder(bev_queries, value, cam_xy, mask, ((fh, fw),),
                              prev_bev=prev_bev, bev_pos=bev_pos,

@@ -5,6 +5,9 @@ library with a plain C interface under ``.kernel_build/`` at the checkout's
 root (listed in ``.gitignore``).  A library's file name carries a hash of
 its source, the shared headers ``csrc/*.cuh`` and the flags, so a changed
 source or header rebuilds and an unchanged one is reused.  Nothing here runs at import time.
+
+:class:`CudaKernel` binds one library's C entry point and launches it on
+the current stream; each kernel module subclasses it.
 """
 
 from __future__ import annotations
@@ -16,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 from typing import Dict
+
+import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / ".kernel_build"
@@ -77,3 +82,50 @@ def build_all() -> Dict[str, Path]:
 def load_library(stem: str) -> ctypes.CDLL:
     """Build (if needed) and load the library of ``csrc/<stem>.cu``."""
     return ctypes.CDLL(str(build_all()[stem]))
+
+
+_SM_COUNT: Dict[int, int] = {}
+
+
+def sm_count(device) -> int:
+    """The multiprocessor count of the CUDA ``device``, read once."""
+    index = torch.device(device).index
+    index = torch.cuda.current_device() if index is None else index
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _SM_COUNT[index]
+
+
+class CudaKernel:
+    """One ctypes-bound kernel: loads its library at first use, launches
+    on the device's current stream, raises on a CUDA error and counts its
+    host launches in ``launches``.  A launch recorded into a CUDA graph
+    counts once, when it is captured; the graph's replays launch nothing
+    from the host and count nothing here (a ``utils.cuda_graph.GraphCache``
+    counts them as ``<name>#graph_replays`` in the recorder).  Subclasses
+    name the library, the C entry point and its arguments' types, and
+    marshal the arguments."""
+
+    library = symbol = ""
+    argtypes: list = []
+
+    def __init__(self):
+        self.launches = 0
+        self._fn = None
+
+    def _launch(self, device, *args) -> None:
+        """Call the entry point with ``args`` and the device's current
+        stream; raise on a CUDA error, else count the launch."""
+        if self._fn is None:
+            fn = getattr(load_library(self.library), self.symbol)
+            fn.argtypes = self.argtypes
+            fn.restype = ctypes.c_int
+            self._fn = fn
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            err = self._fn(*args, stream)
+        if err != 0:
+            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
+                               f"{err}")
+        self.launches += 1

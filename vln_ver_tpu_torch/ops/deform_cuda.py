@@ -31,6 +31,7 @@ from typing import Dict, List, NamedTuple, Sequence, Tuple
 import torch
 from torch.autograd.function import once_differentiable
 
+from .build import CudaKernel, sm_count
 from .deform_attn import ms_deform_attn_2d
 
 # 32 lanes x 8 loads of one fp32 (csrc/deform_attn_2d.cu kMaxHeadDim)
@@ -440,72 +441,7 @@ def _check_layout(value: torch.Tensor,
     return bs, nv, heads, d, nq, L, P
 
 
-_SM_COUNT: Dict[int, int] = {}
-
-
-def _sm_count(device) -> int:
-    index = torch.device(device).index
-    index = torch.cuda.current_device() if index is None else index
-    if index not in _SM_COUNT:
-        _SM_COUNT[index] = torch.cuda.get_device_properties(
-            index).multi_processor_count
-    return _SM_COUNT[index]
-
-
-class _CudaKernel:
-    """One ctypes-bound kernel: loads its library at first use, counts its
-    launches in ``launches`` and keeps the plan and the query count of the
-    latest launch in ``last_plan`` and ``last_nq``.  Subclasses name the
-    library, the C entry point and its arguments' types, and marshal the
-    arguments."""
-
-    library = symbol = ""
-    argtypes: list = []
-
-    def __init__(self):
-        self.launches = 0
-        self.last_plan = None
-        self.last_nq = None
-        self._fn = None
-
-    def _launch(self, plan, nq, device, *args) -> None:
-        """Call the entry point with ``args`` and the device's current
-        stream; raise on a CUDA error, else count the launch of ``nq``
-        queries a slot."""
-        if self._fn is None:
-            from .build import load_library
-            fn = getattr(load_library(self.library), self.symbol)
-            fn.argtypes = self.argtypes
-            fn.restype = ctypes.c_int
-            self._fn = fn
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            err = self._fn(*args, stream)
-        if err != 0:
-            raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
-                               f"{err}")
-        self.launches += 1
-        self.last_plan = plan
-        self.last_nq = nq
-
-    def mark(self) -> tuple:
-        """The launch count and the latest launch's plan and query count."""
-        return self.launches, self.last_plan, self.last_nq
-
-    def restore(self, mark: tuple) -> None:
-        """Back to ``mark``: a CUDA graph's capture launched nothing."""
-        self.launches, self.last_plan, self.last_nq = mark
-
-    def replayed(self, before: tuple, after: tuple) -> None:
-        """A CUDA graph whose capture ran from the mark ``before`` to the
-        mark ``after`` replayed: count its launches again, and keep its
-        last launch as the latest."""
-        if after[0] != before[0]:
-            self.launches += after[0] - before[0]
-            self.last_plan, self.last_nq = after[1], after[2]
-
-
-class DeformAttn2dKernel(_CudaKernel):
+class DeformAttn2dKernel(CudaKernel):
     """The forward kernel (``csrc/deform_attn_2d.cu``), with its plans
     cached per shape."""
 
@@ -518,7 +454,7 @@ class DeformAttn2dKernel(_CudaKernel):
         self._plans: Dict[tuple, LaunchPlan] = {}
 
     def plan(self, bs, heads, nq, hw, d, elt, device) -> LaunchPlan:
-        key = (bs, heads, nq, hw, d, elt, _sm_count(device))
+        key = (bs, heads, nq, hw, d, elt, sm_count(device))
         if key not in self._plans:
             self._plans[key] = plan_launch(*key)
         return self._plans[key]
@@ -535,16 +471,16 @@ class DeformAttn2dKernel(_CudaKernel):
             return out
         plan = self.plan(bs, heads, nq, H * W, d, value.element_size(),
                          value.device)
-        self._launch(plan, nq, value.device, value.data_ptr(),
-                     locations.data_ptr(), weights.data_ptr(),
-                     out.data_ptr(), bs, H, W, heads, d, nq, P,
+        self._launch(value.device, value.data_ptr(), locations.data_ptr(),
+                     weights.data_ptr(), out.data_ptr(), bs, H, W, heads, d,
+                     nq, P,
                      int(value.dtype == torch.bfloat16), plan.chunk,
                      plan.items, plan.items_per_cta, plan.ctas, plan.stages,
                      plan.row_stride, plan.stage_bytes, plan.smem_bytes)
         return out
 
 
-class DeformAttn2dBackwardKernel(_CudaKernel):
+class DeformAttn2dBackwardKernel(CudaKernel):
     """The backward of :class:`DeformAttn2dKernel`
     (``csrc/deform_attn_2d_bwd.cu``), with its own launch count and its
     plans cached per shape."""
@@ -559,7 +495,7 @@ class DeformAttn2dBackwardKernel(_CudaKernel):
 
     def plan(self, bs, heads, nq, hw, d, elt, device, need_value,
              need_sums) -> BackwardPlan:
-        key = (bs, heads, nq, hw, d, elt, _sm_count(device), need_value,
+        key = (bs, heads, nq, hw, d, elt, sm_count(device), need_value,
                need_sums)
         if key not in self._plans:
             self._plans[key] = plan_backward(*key)
@@ -598,7 +534,7 @@ class DeformAttn2dBackwardKernel(_CudaKernel):
         def ptr(t):
             return None if t is None else t.data_ptr()
 
-        self._launch(plan, nq, dev, value.data_ptr(), locations.data_ptr(),
+        self._launch(dev, value.data_ptr(), locations.data_ptr(),
                      weights.data_ptr(), grad_out.data_ptr(), ptr(dv),
                      ptr(dl), ptr(dw), bs, H, W, heads, d, nq, P,
                      int(value.dtype == torch.bfloat16), plan.value_ctas,
@@ -609,7 +545,7 @@ class DeformAttn2dBackwardKernel(_CudaKernel):
         return dv, dl, dw
 
 
-class MsdaGatherKernel(_CudaKernel):
+class MsdaGatherKernel(CudaKernel):
     """The multi-level forward that gathers from global memory
     (``csrc/msda_gather.cu``), with its own launch count.  Forward only."""
 
@@ -629,12 +565,12 @@ class MsdaGatherKernel(_CudaKernel):
         if out.numel() == 0 or P == 0:
             return out.zero_()
         plan = plan_gather(bs, heads, nq, L, d, value.element_size(),
-                           _sm_count(value.device))
+                           sm_count(value.device))
         shapes = (ctypes.c_int * (2 * L))(
             *[int(v) for hw in spatial_shapes for v in hw])
-        self._launch(plan, nq, value.device, value.data_ptr(),
-                     locations.data_ptr(), weights.data_ptr(),
-                     out.data_ptr(), bs, nv, heads, d, nq, L, P, shapes,
+        self._launch(value.device, value.data_ptr(), locations.data_ptr(),
+                     weights.data_ptr(), out.data_ptr(), bs, nv, heads, d,
+                     nq, L, P, shapes,
                      int(value.dtype == torch.bfloat16), plan.items_per_warp,
                      plan.blocks)
         return out

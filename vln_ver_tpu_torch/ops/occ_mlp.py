@@ -26,7 +26,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from .deform_cuda import _CudaKernel, _sm_count
+from .build import CudaKernel, sm_count
 
 # csrc/occ_mlp.cu: kMaxD, kMaxN, kWarps, kRows
 MAX_DIMS, MAX_CLASSES = 128, 32
@@ -103,7 +103,7 @@ def lattice_plain(x: torch.Tensor, branch: nn.Sequential,
     return full
 
 
-class OccMlpKernel(_CudaKernel):
+class OccMlpKernel(CudaKernel):
     """``csrc/occ_mlp.cu`` with its launch count (``launches``)."""
 
     library, symbol = "occ_mlp", "occ_mlp_forward"
@@ -144,8 +144,8 @@ class OccMlpKernel(_CudaKernel):
     def _run(self, x, prm, bias_logits, out, lattice_dims):
         rows = x.numel() // x.shape[-1]
         h2, w2, oz = lattice_dims
-        blocks = plan_grid(rows, _sm_count(x.device))
-        self._launch(blocks, rows, x.device, x.data_ptr(),
+        blocks = plan_grid(rows, sm_count(x.device))
+        self._launch(x.device, x.data_ptr(),
                      *(getattr(prm, k).data_ptr()
                        for k in BranchParams._fields[:-1]),
                      None if bias_logits is None else bias_logits.data_ptr(),

@@ -80,28 +80,24 @@ def parse_args(argv=None):
 def pretrain_updates(model, state, records, batch_size: int,
                      rng: np.random.Generator, generator, device,
                      mask_id: int = 1, special_ids: tuple = (),
-                     stages=None, mesh=None):
+                     mesh=None):
     """The pretrainer's loop, as a generator: draw ``batch_size`` records,
     stack and upload them, take one update of ``pretrain_loss``; yields
-    (update, loss, parts) after each.  ``stages`` gathers the CUDA events
-    of ``agent.update.mark``: ``"start"``, ``"upload"``, then the
-    update's.  With ``mesh`` this rank stacks its rows of the drawn
-    records (``agent.update.update``'s ``mesh``)."""
+    (update, loss, parts) after each.  With ``mesh`` this rank stacks its
+    rows of the drawn records (``agent.update.update``'s ``mesh``)."""
     from .agent.parallel import shard_agent_batch
     from .agent.pretrain import pretrain_loss, stack_records
-    from .agent.update import mark, update
+    from .agent.update import update
 
     step = 0
     while True:
         idx = rng.integers(0, len(records), batch_size)
         if mesh is not None:
             idx = shard_agent_batch(mesh, idx)
-        mark(stages, "start")
         batch = stack_records([records[i] for i in idx], device)
-        mark(stages, "upload")
         loss, parts, _ = update(state, lambda: pretrain_loss(
             model, batch, generator, mask_id=mask_id,
-            special_ids=special_ids), stages, mesh=mesh)
+            special_ids=special_ids), mesh=mesh)
         step += 1
         yield step, loss, parts
 

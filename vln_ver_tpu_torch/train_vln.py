@@ -35,7 +35,7 @@ import argparse
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Dict
 
 import numpy as np
 
@@ -102,25 +102,19 @@ def parse_args(argv=None):
 def dagger_updates(policy, state, env, cfg, rng: np.random.Generator,
                    generator, device, sample_prob: float = 0.5,
                    dagger_ramp: int = 0, episode_batch: int = 1,
-                   update_batch: int = 8, times: Optional[Dict] = None,
-                   stages=None, mesh=None):
+                   update_batch: int = 8, mesh=None):
     """The trainer's loop, as a generator: roll episodes (greedy, or with
     sampled actions with probability ``sample_prob`` ramped over
     ``dagger_ramp`` steps), buffer their teacher-labelled steps, and take
     one update per ``update_batch`` of them; yields (steps trained, loss,
-    parts) after every update.  ``times["rollout"]`` gathers the rollouts'
-    host seconds, ``"rollouts"`` and ``"sampled"`` count them and those
-    with the student's actions, and the rest of ``times`` is their split
-    (``agent.rollout``'s ``times=``); ``stages`` the CUDA events of
-    ``agent.update.mark``: ``"start"``, ``"upload"`` (stacking and
-    upload), then the update's.  With ``mesh`` each update stacks this
+    parts) after every update.  With ``mesh`` each update stacks this
     rank's rows of the decision steps (``agent.update.update``'s
     ``mesh``)."""
     from .agent.parallel import shard_agent_batch
     from .agent.pretrain import stack_records
     from .agent.rollout import (imitation_step_loss, run_episode,
                                 run_episodes_batched)
-    from .agent.update import mark, update
+    from .agent.update import update
 
     step, buffer = 0, []
     while True:
@@ -128,36 +122,28 @@ def dagger_updates(policy, state, env, cfg, rng: np.random.Generator,
         if dagger_ramp > 0:
             p_sample *= min(1.0, step / dagger_ramp)
         sample = bool(rng.uniform() < p_sample)
-        t0 = time.perf_counter()
         if episode_batch > 1:
             idxs = [int(rng.integers(len(env.episodes)))
                     for _ in range(episode_batch)]
             _, traces = run_episodes_batched(
                 policy, env, idxs, cfg, greedy=not sample,
-                generator=generator, collect_teacher=True, times=times)
+                generator=generator, collect_teacher=True)
             for t in traces:
                 buffer.extend(t)
         else:
             ep_idx = int(rng.integers(len(env.episodes)))
             _, trace = run_episode(policy, env, ep_idx, cfg,
                                    greedy=not sample, generator=generator,
-                                   collect_teacher=True, times=times)
+                                   collect_teacher=True)
             buffer.extend(trace)
-        if times is not None:
-            times["rollout"] = (times.get("rollout", 0.0)
-                                + time.perf_counter() - t0)
-            times["rollouts"] = times.get("rollouts", 0) + 1
-            times["sampled"] = times.get("sampled", 0) + sample
         while len(buffer) >= update_batch:
             chunk, buffer = buffer[:update_batch], buffer[update_batch:]
-            mark(stages, "start")
             rows = (chunk if mesh is None else
                     [chunk[i] for i in shard_agent_batch(
                         mesh, np.arange(len(chunk)))])
             batch = stack_records(rows, device)
-            mark(stages, "upload")
             loss, parts, _ = update(
-                state, lambda: imitation_step_loss(policy, batch), stages,
+                state, lambda: imitation_step_loss(policy, batch),
                 mesh=mesh)
             step += len(chunk)
             yield step, loss, parts

@@ -28,13 +28,6 @@ plans, cuBLAS handles), captures it, and replays.  A hit copies the
 inputs into the graph's static buffers and replays; neither syncs with
 the host.  What leaves the graph is cloned, so outputs a caller keeps are
 never overwritten by a later replay.
-
-Host-side launch counts of hand-written kernels (``deform_cuda.KERNEL``)
-count each call's launches as an eager call would: the warm-up counts
-those of the capturing call, the capture itself none (the kernel's
-``restore(mark)``), and each later replay counts the captured ones again
-(``replayed(before, after)``, from the kernel's ``mark()`` before and
-after the capture).
 """
 
 from __future__ import annotations
@@ -52,7 +45,6 @@ class _Entry(NamedTuple):
     graph: "torch.cuda.CUDAGraph"
     inputs: list          # the static input buffers
     outputs: object       # fn's outputs, written by each replay
-    marks: list           # (kernel, mark before, mark after) a kernel
 
 
 def _tree_map(fn, tree):
@@ -109,9 +101,7 @@ def graph_key(inputs: Sequence[torch.Tensor], modules: Sequence[nn.Module],
 
 class GraphCache:
     """Up to ``SIZE`` captured graphs of one call site, least recently
-    used evicted first.  ``kernels``: the hand-written kernels the chain
-    may launch, whose launch counts replays keep (module docstring).
-    ``name``: count ``<name>#calls`` for every call and
+    used evicted first.  ``name``: count ``<name>#calls`` for every call and
     ``<name>#graph_replays`` for those a graph served, in the program's
     recorder (``utils.profiling.count``)."""
 
@@ -119,8 +109,7 @@ class GraphCache:
     # batch; a server pads every batch to one size)
     SIZE = 4
 
-    def __init__(self, kernels: Sequence = (), name: Optional[str] = None):
-        self.kernels = tuple(kernels)
+    def __init__(self, name: Optional[str] = None):
         self.name = name
         self.graphs: "collections.OrderedDict[tuple, _Entry]" = \
             collections.OrderedDict()
@@ -142,15 +131,11 @@ class GraphCache:
             self.graphs[key] = entry
             while len(self.graphs) > self.SIZE:
                 self.graphs.popitem(last=False)
-            # the warm-up counted this call's launches
-            entry.graph.replay()
         else:
             self.graphs.move_to_end(key)
             for buf, x in zip(entry.inputs, inputs):
                 buf.copy_(x)
-            entry.graph.replay()
-            for kernel, before, after in entry.marks:
-                kernel.replayed(before, after)
+        entry.graph.replay()
         if self.name:
             count(f"{self.name}#graph_replays", 1)
         return _tree_map(torch.clone, entry.outputs)
@@ -165,7 +150,6 @@ class GraphCache:
             fn(*static)
         torch.cuda.current_stream(device).wait_stream(side)
         graph = torch.cuda.CUDAGraph()
-        before = [k.mark() for k in self.kernels]
         # torch.cuda.graph() without its gc.collect() and empty_cache(),
         # which only free memory for the graph and slow a large process's
         # set-up
@@ -176,7 +160,4 @@ class GraphCache:
                 outputs = fn(*static)
             finally:
                 graph.capture_end()
-        marks = [(k, b, k.mark()) for k, b in zip(self.kernels, before)]
-        for k, b in zip(self.kernels, before):
-            k.restore(b)
-        return _Entry(graph, static, outputs, marks)
+        return _Entry(graph, static, outputs)
