@@ -12,7 +12,7 @@ BEVFormer-2D family and the 36-view headline model.
 
 The paths are checked here, not timed: the benchmark (``python -m
 verbench.run``) times them.  The times this script prints are of the
-hand-written kernels alone (phases 5, 5c and 12) and of the upsampler's
+hand-written kernels alone (phases 5, 5c, 5d and 12) and of the upsampler's
 two routes (phase 5b).  Launch counts say which route served a call: a
 kernel's ``launches`` counts its host launches, so a launch inside a
 replayed CUDA graph is read from the recorder's ``decoder#graph_replays``
@@ -72,7 +72,9 @@ Phases (any failure exits nonzero, nothing is caught):
      ``informative``'s even grid plus bias, then the gradients of the
      input, every weight and bias through each (fp32: outputs within rtol
      1e-4 / atol 1e-4, gradients within 1e-4 in relative L2; bf16: 2e-2
-     in relative L2 for both), and at batch 2 the factorised backward run
+     in relative L2 for both); with autograd off, the z-major route
+     (the assembly kernel, a launch a stage) against the same even
+     cells at the same limits; and at batch 2 the factorised backward run
      twice under cudnn.deterministic, bitwise equal; stage 1's fp32
      weight gradient within 1e-5 of a float64 run in relative L2 (printed
      beside the 2D-convolution form's).  Print each route's
@@ -92,6 +94,16 @@ Phases (any failure exits nonzero, nothing is caught):
      the kernel was given, bit for bit; the kernel timed (CUDA events)
      beside its bound (the rows read and the lattice written once) and the
      eager chain's time;
+  5d. the upsampler's assembly kernel (csrc/up_assemble.cu) at the
+     headline's widths (UP_ASSEMBLE_BATCHES: batch 1 and 8, bf16, 768
+     channels, Z = 4, 15 x 15 to 60 x 60 in three stages; random weights
+     from seed 11, biases drawn non-zero): each stage's phases and bias
+     profile from the stage's own convolutions, the kernel's even grid
+     against the plain assembly (``ops.up_assemble.assemble_plain``) bit
+     for bit, a launch a stage; each stage's kernel timed (CUDA events
+     over a CUDA graph of launches, and over eager launches) beside its
+     bound (every tap and profile value read once, the even grid written
+     once) and the plain assembly's time;
   6. run the eval path as ``python -m vln_ver_tpu_torch.test`` does
      (configs/verformer/vocc.py at full width, the same random weights
      from seed 0, 8 synthetic viewpoints with ground truth at the full
@@ -221,16 +233,18 @@ Phases (any failure exits nonzero, nothing is caught):
      (VERConfig(num_cams=36, dtype=bfloat16), seed-0 weights, the example
      inputs of numpy seed 0): the capacity derived from the rig (192);
      one forward at batch 8 of the sparse and of the dense lift, 3
-     forward launches each (nq 192 and 900) and no backward, and 2
-     launches of the occupancy MLP kernel each, sca_overflow 0; the same
+     forward launches each (nq 192 and 900) and no backward, 2 launches
+     of the occupancy MLP kernel and 3 of the upsampler's assembly kernel
+     (one a stage) each, sca_overflow 0; the same
      weights in fp32 at batch 8: the sparse lift's bev_embed within 1e-5
      of the dense lift's; one fp32 only_bev forward at batch 1 against
      the CPU (rtol 1e-4, atol 1e-4).  Then ``check_determinism`` at its
-     defaults (36 cameras, bf16, batch 2, 3 runs: 3 forward and 2
-     occupancy MLP launches a run, the differing outputs reported, not
-     failed on).  Then, untimed: one bf16 train step at batch 2 (3
-     forward and 3 backward launches, no occupancy MLP launch, a finite
-     loss), and 16 viewpoints of uint8 views through a bf16 ViT-B/16 and
+     defaults (36 cameras, bf16, batch 2, 3 runs: 3 forward, 2 occupancy
+     MLP and 3 upsampler assembly launches a run, the differing outputs
+     reported, not failed on).  Then, untimed: one bf16 train step at
+     batch 2 (3 forward and 3 backward launches, no occupancy MLP or
+     upsampler assembly launch: autograd on, a finite loss), and 16
+     viewpoints of uint8 views through a bf16 ViT-B/16 and
      the sparse lift, ``dump_volumes`` into ``verbench.h5mem`` at batch 8
      (6 forward launches, nothing else, no overflow, every volume
      finite).  Then the ``kernels`` line (each kernel's times alone,
@@ -343,6 +357,9 @@ OCC_MLP_SHAPES = [(1, 60, 60, 35, 128, 16), (8, 60, 60, 35, 128, 16)]
 # bf16 holds against the dense route in relative L2 (several bf16
 # roundings of the tap and phase sums against one)
 UPSAMPLER_BATCHES = (8, 2)
+# phase 5d: the upsampler's assembly kernel at the headline's batch and
+# batch 1
+UP_ASSEMBLE_BATCHES = (1, 8)
 UPSAMPLER_BF16_REL = 2e-2
 
 
@@ -565,6 +582,7 @@ def upsampler_routes(card):
     from vln_ver_tpu_torch.models.head import (OccUpsampler,
                                                dense_reference,
                                                upsampler_stages)
+    from vln_ver_tpu_torch.ops.up_assemble import KERNEL as UP_KERNEL
     from vln_ver_tpu_torch.runtime import fp32_precision
 
     dev = torch.device("cuda")
@@ -622,6 +640,22 @@ def upsampler_routes(card):
                         fail(f"upsampler {name} B={b}: the factorised "
                              f"{what} output disagrees with the dense "
                              f"reference ({errs})")
+                with torch.no_grad():   # the z-major route: autograd off
+                    before = UP_KERNEL.launches
+                    e_k, bias_k = up.informative(x.detach())
+                    launches = UP_KERNEL.launches - before
+                    got = e_k + bias_k
+                errs["z-major"] = rel_l2(got, ref_even)
+                if dtype == torch.float32:
+                    errs["z-major max_abs"], ok = close(got, ref_even, 1e-4,
+                                                        1e-4)
+                else:
+                    ok = errs["z-major"] <= UPSAMPLER_BF16_REL
+                if not ok or launches != n:
+                    fail(f"upsampler {name} B={b}: the z-major route's even "
+                         f"grid ({launches} assembly launches) disagrees "
+                         f"with the dense reference ({errs})")
+                del e_k, got
                 for what, out, out_ref, cot in (
                         ("full", full, ref, g),
                         ("informative", even, ref_even, g_even)):
@@ -793,6 +827,112 @@ def occ_mlp_shapes(card):
                  f"{rows_err:.3e} (rows) against the eager chain (limit "
                  f"{eager_err:.3e})")
         del x, got, branch, bias_plain
+        torch.cuda.empty_cache()
+    return numbers
+
+
+def up_assemble_bound_ms(z, b, ho, wo, c, itemsize, prof):
+    """Least time of one assembly: every tap value that feeds an even cell
+    (the k = 1 tap at each plane, the k = 0 tap at planes >= 2, the k = 2
+    tap at planes <= Z - 3) and every profile value read once, the even
+    grid written once."""
+    feeds = sum(1 + (zi >= 2) + (zi <= z - 3) for zi in range(z))
+    cells = ho * wo * c * itemsize
+    moved = (feeds * b + (1 + 2 * (z > 2)) * prof + z * b) * cells
+    return 1e3 * moved / HBM_BYTES_PER_S
+
+
+def up_assemble_stages(up, x, each=None):
+    """The stages of ``up`` on the z-major route on the card, from x
+    (B, Z, H, W, C): each stage's taps from its own convolutions, its even
+    grid by the kernel and by the plain assembly, and the kernel's grid
+    fed to the next stage.  Returns, a stage, the kernel's launches,
+    whether its grid is the plain one's bit for bit, its shape and dtype,
+    and what ``each(phases, prof, grid)`` returns (phase 5d's times)."""
+    import torch
+
+    from vln_ver_tpu_torch.ops.up_assemble import (KERNEL, assemble,
+                                                   assemble_plain)
+    out = []
+    with torch.inference_mode():
+        e = x.to(up[0].dtype).transpose(0, 1).contiguous()
+        for i, stage in enumerate(up):
+            phases, prof, grid = (stage.even_taps(e) if i == 0 else
+                                  stage.phase_taps(e, up[i - 1].bias))
+            before = KERNEL.launches
+            got = assemble(phases, prof, grid)
+            torch.cuda.synchronize()
+            launches = KERNEL.launches - before
+            want = assemble_plain(phases, prof, grid)
+            out.append({"launches": launches,
+                        "equal": torch.equal(got, want),
+                        "shape": tuple(got.shape), "dtype": got.dtype,
+                        "prof": prof is not None,
+                        **(each(phases, prof, grid) if each else {})})
+            e = got
+            del phases, prof, want
+    return out
+
+
+def up_assemble_shapes(card):
+    """Phase 5d: the upsampler's assembly kernel against the plain assembly
+    at the headline's widths (``up_assemble_stages``); returns the
+    ``up_assemble`` JSON line's numbers."""
+    import torch
+
+    from vln_ver_tpu_torch.config import build_ver_config, load_config
+    from vln_ver_tpu_torch.models.head import OccUpsampler, upsampler_stages
+    from vln_ver_tpu_torch.ops.up_assemble import assemble, assemble_plain
+    dev, bf16 = torch.device("cuda"), torch.bfloat16
+    ver = build_ver_config(load_config(
+        os.path.join(REPO, "configs/verformer/vocc.py")))
+    c, z, h, w = ver.embed_dims, ver.bev_z, ver.bev_h, ver.bev_w
+    gen = torch.Generator().manual_seed(11)
+    up = OccUpsampler(c, upsampler_stages(ver), bf16)
+    with torch.no_grad():
+        for stage in up:
+            stage.reset_parameters(gen)
+            stage.bias.normal_(0.0, 0.1, generator=gen)
+    up.to(dev)
+
+    def timed(phases, prof, grid):
+        return {"ms": time_graph_ms(lambda: assemble(phases, prof, grid)),
+                "eager_ms": time_ms(lambda: assemble(phases, prof, grid),
+                                    iters=50, warmup=5),
+                "plain_ms": time_ms(
+                    lambda: assemble_plain(phases, prof, grid), iters=5,
+                    warmup=1)}
+
+    numbers = {}
+    for b in UP_ASSEMBLE_BATCHES:
+        x = torch.randn(b, z, h, w, c, generator=gen).to(dev, bf16)
+        stages = up_assemble_stages(up, x, timed)
+        for i, st in enumerate(stages):
+            if st["launches"] != 1 or not st["equal"]:
+                fail(f"up_assemble B={b} stage {i}: launches "
+                     f"{st['launches']}, equal to the plain assembly "
+                     f"{st['equal']}")
+            _, _, ho, wo, _ = st["shape"]
+            st.update(grid=[ho, wo], bound_ms=up_assemble_bound_ms(
+                z, b, ho, wo, c, 2, st["prof"]))
+            for k in ("launches", "equal", "shape", "dtype", "prof"):
+                del st[k]
+        total = {k: sum(s[k] for s in stages)
+                 for k in ("ms", "eager_ms", "bound_ms", "plain_ms")}
+        tag = f"B={b}"
+        numbers[tag] = {**total, "share": 100.0 * total["bound_ms"]
+                        / total["ms"], "stages": stages}
+        print(f"upsampler assembly kernel {tag} (bf16, {c} channels, Z = "
+              f"{z}, {len(up)} stages): {total['ms']:.4f} ms (graph; eager "
+              f"{total['eager_ms']:.4f}), bound {total['bound_ms']:.4f} ms "
+              f"({numbers[tag]['share']:.1f} %), plain assembly "
+              f"{total['plain_ms']:.4f} ms; by stage (graph / bound / plain) "
+              + ", ".join(f"{s['grid'][0]}x{s['grid'][1]} {s['ms']:.4f} / "
+                          f"{s['bound_ms']:.4f} / {s['plain_ms']:.4f}"
+                          for s in stages)
+              + f"; bit for bit the plain assembly, a launch a stage "
+              f"[{card}]")
+        del x
         torch.cuda.empty_cache()
     return numbers
 
@@ -2698,12 +2838,15 @@ def headline_path(card):
 
     from vln_ver_tpu_torch import bench, check_determinism
     from vln_ver_tpu_torch.models import VERConfig, VoxelFormer, build_model
+    from vln_ver_tpu_torch.models.head import upsampler_stages
     from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
     from vln_ver_tpu_torch.ops.occ_mlp import KERNEL as OCC
+    from vln_ver_tpu_torch.ops.up_assemble import KERNEL as UP
 
     dev = torch.device("cuda")
     t_phase = time.perf_counter()
     base = VERConfig(num_cams=HEADLINE_CAMS, dtype=torch.bfloat16)
+    stages = upsampler_stages(base)
     feats, w2p, shift = bench.example_inputs(base, batch=HEADLINE_BATCH)
     qcap = bench.derived_qcap(base, w2p, shift)
     print(f"headline: the rig's derived capacity {qcap} "
@@ -2727,18 +2870,21 @@ def headline_path(card):
     for cap in (qcap, 0):
         model = on_card(torch.bfloat16, cap)
         KERNEL.launches = KERNEL_BWD.launches = OCC.launches = 0
+        UP.launches = 0
         with torch.inference_mode(), planned() as nq:
             outs = model(*ins)
             torch.cuda.synchronize()
         got = (KERNEL.launches, KERNEL_BWD.launches, nq["fwd"],
-               OCC.launches)
-        want = (model.cfg.encoder_layers, 0, cap or model.cfg.bev_num, 2)
+               OCC.launches, UP.launches)
+        want = (model.cfg.encoder_layers, 0, cap or model.cfg.bev_num, 2,
+                stages)
         overflow = int(outs["sca_overflow"])
         bad = [k for k in heads if not bool(torch.isfinite(
             outs[k].float()).all())]
         print(f"headline bf16 forward at batch {HEADLINE_BATCH}, capacity "
-              f"{cap}: (forward, backward launches, nq, occupancy MLP "
-              f"launches) {got}, expected {want}; sca_overflow {overflow}; "
+              f"{cap}: (forward, backward launches, nq, occupancy MLP, "
+              f"upsampler assembly launches) {got}, expected {want}; "
+              f"sca_overflow {overflow}; "
               f"non-finite {bad}; shapes "
               f"{[tuple(outs[k].shape) for k in heads]}")
         if got != want or overflow or bad:
@@ -2781,17 +2927,19 @@ def headline_path(card):
     del model, bevs, cpu_model, weights, card1, cpu1
     torch.cuda.empty_cache()
 
-    KERNEL.launches = KERNEL_BWD.launches = OCC.launches = 0
+    KERNEL.launches = KERNEL_BWD.launches = OCC.launches = UP.launches = 0
     det = check_determinism.run(check_determinism.parse_args([]))
     runs = len(det["prints"])
-    got = (KERNEL.launches, KERNEL_BWD.launches, OCC.launches)
-    if got != (3 * runs, 0, 2 * runs):
+    got = (KERNEL.launches, KERNEL_BWD.launches, OCC.launches, UP.launches)
+    each = (base.encoder_layers, 0, 2, stages)
+    if got != tuple(runs * n for n in each):
         fail(f"check_determinism launched (forward, backward, occupancy "
-             f"MLP) {got}, expected (3, 0, 2) x {runs} runs")
+             f"MLP, upsampler assembly) {got}, expected {each} x {runs} "
+             f"runs")
     print(f"check_determinism (36 cameras, bf16, batch 2, {runs} runs): "
           f"bitwise deterministic {det['bitwise_deterministic']}, outputs "
           f"that differ {det['differs']}, launches (forward, backward, "
-          f"occupancy MLP) {got} [{card}]")
+          f"occupancy MLP, upsampler assembly) {got} [{card}]")
     torch.cuda.empty_cache()
     headline_train_and_dump(base, qcap, w2p, shift, dev)
     print(f"headline phase: {time.perf_counter() - t_phase:.2f}s")
@@ -2805,12 +2953,13 @@ def headline_train_and_dump(base, qcap, w2p, shift, dev):
     """Phase 13's untimed runs of the 36-view bf16 paths that nothing else
     drives on the card: one train step of ``base`` at batch 2 (dense lift,
     ``bench_train``'s synthetic batch), which must launch each deform
-    kernel once a layer, never the occupancy MLP kernel (autograd on), and
-    give a finite loss; then the ViT -> lift dump (``make_bev_only`` with a
-    bf16 ViT-B/16 through ``dump_volumes`` into ``verbench.h5mem``) of two
-    batches of viewpoints at the rig's capacity ``qcap``, which must write
-    each volume finite with no overflow, launch the forward kernel once a
-    layer a batch and nothing else."""
+    kernel once a layer, never the occupancy MLP or the upsampler's
+    assembly kernel (autograd on), and give a finite loss; then the ViT ->
+    lift dump (``make_bev_only`` with a bf16 ViT-B/16 through
+    ``dump_volumes`` into ``verbench.h5mem``) of two batches of viewpoints
+    at the rig's capacity ``qcap``, which must write each volume finite
+    with no overflow, launch the forward kernel once a layer a batch and
+    nothing else."""
     import torch
 
     from vln_ver_tpu_torch.bench_train import synthetic_batch
@@ -2819,6 +2968,7 @@ def headline_train_and_dump(base, qcap, w2p, shift, dev):
     from vln_ver_tpu_torch.models.vit import vit_for_ver
     from vln_ver_tpu_torch.ops.deform_cuda import KERNEL, KERNEL_BWD
     from vln_ver_tpu_torch.ops.occ_mlp import KERNEL as OCC
+    from vln_ver_tpu_torch.ops.up_assemble import KERNEL as UP
     from vln_ver_tpu_torch.train.feed import to_device
     from vln_ver_tpu_torch.train.state import TrainConfig, create_train_state
     from vln_ver_tpu_torch.train.step import make_train_step
@@ -2828,13 +2978,13 @@ def headline_train_and_dump(base, qcap, w2p, shift, dev):
     tc = TrainConfig(warmup_steps=10, total_steps=1000)
     state = create_train_state(build_model(base, dev, seed=0), tc)
     batch = to_device(synthetic_batch(base, 2, 16), dev)
-    KERNEL.launches = KERNEL_BWD.launches = OCC.launches = 0
+    KERNEL.launches = KERNEL_BWD.launches = OCC.launches = UP.launches = 0
     loss = float(make_train_step(base, tc)(state, batch, 1)["loss"])
-    got = (KERNEL.launches, KERNEL_BWD.launches, OCC.launches)
+    got = (KERNEL.launches, KERNEL_BWD.launches, OCC.launches, UP.launches)
     print(f"headline bf16 train step at batch 2: loss {loss:.4f}, launches "
-          f"(forward, backward, occupancy MLP) {got}, expected "
-          f"{(layers, layers, 0)}")
-    if got != (layers, layers, 0) or not math.isfinite(loss):
+          f"(forward, backward, occupancy MLP, upsampler assembly) {got}, "
+          f"expected {(layers, layers, 0, 0)}")
+    if got != (layers, layers, 0, 0) or not math.isfinite(loss):
         fail("the 36-view bf16 train step")
     del state, batch
     torch.cuda.empty_cache()
@@ -2853,19 +3003,20 @@ def headline_train_and_dump(base, qcap, w2p, shift, dev):
                for i in range(n)]
     store = MemoryH5()
     store.keep = {d["token"] for d in dataset}
-    KERNEL.launches = KERNEL_BWD.launches = OCC.launches = 0
+    KERNEL.launches = KERNEL_BWD.launches = OCC.launches = UP.launches = 0
     with store.installed():
         res = dump_volumes(make_bev_only(model, vit), dataset, cfg,
                            "headline_images.hdf5", batch_size=len(w2p),
                            device=dev, input_key="images")
-    got = (KERNEL.launches, KERNEL_BWD.launches, OCC.launches)
+    got = (KERNEL.launches, KERNEL_BWD.launches, OCC.launches, UP.launches)
     bad = [k for k, v in store.kept.items() if not np.isfinite(v).all()]
     print(f"headline bf16 ViT -> lift dump of {n} viewpoints at batch "
           f"{len(w2p)}: {res['written']} volumes written, sca_overflow "
           f"{res['sca_overflow']}, non-finite {bad}, launches (forward, "
-          f"backward, occupancy MLP) {got}, expected {(2 * layers, 0, 0)}")
+          f"backward, occupancy MLP, upsampler assembly) {got}, expected "
+          f"{(2 * layers, 0, 0, 0)}")
     if (res["written"] != n or len(store.kept) != n or res["sca_overflow"]
-            or bad or got != (2 * layers, 0, 0)):
+            or bad or got != (2 * layers, 0, 0, 0)):
         fail("the 36-view bf16 image dump")
     del model, vit, store
     torch.cuda.empty_cache()
@@ -3188,6 +3339,10 @@ def main() -> None:
     # -- phase 5c: the occupancy MLP kernel vs the eager chain -------------
     occ_mlp = occ_mlp_shapes(card)
     print(json.dumps({"occ_mlp": {**occ_mlp, "card": card}}))
+
+    # -- phase 5d: the upsampler's assembly kernel vs the plain assembly ---
+    print(json.dumps({"up_assemble": {**up_assemble_shapes(card),
+                                      "card": card}}))
 
     # -- phase 6: full forward and eval ------------------------------------
     samples = full_forward_and_eval(model, ver)

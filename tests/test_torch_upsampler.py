@@ -9,7 +9,11 @@ stack on the same parameters (``dense_reference``), outputs within atol
 2e-5 / rtol 1e-5 (the JAX package's own test,
 tests/test_model_forward.py::test_upsampler_matches_conv_transpose) and
 the gradients of the input, weights and biases within rtol 1e-4 / atol
-1e-5; and that no occupancy layout reaches ``F.conv_transpose3d``."""
+1e-5; the z-major route (each stage's z-tap convolutions summed by
+``ops.up_assemble``'s plain assembly, the composition the card's kernel
+computes) against JAX, the stack-and-add path and the dense stack at the
+same tolerances; and that no occupancy layout reaches
+``F.conv_transpose3d``."""
 
 import dataclasses
 import functools
@@ -29,6 +33,7 @@ from vln_ver_tpu_torch.geometry import make_pinhole_world2pixel
 from vln_ver_tpu_torch.models import build_model
 from vln_ver_tpu_torch.models.config import VERConfig
 from vln_ver_tpu_torch.models.head import OccUpsampler, dense_reference
+from vln_ver_tpu_torch.ops import up_assemble
 
 torch.set_num_threads(1)
 
@@ -153,6 +158,37 @@ def test_upsampler_matches_jax(weights, jax_refs, stages, z, dtype):
     if stages == 1:     # a stage called alone: the same NDHWC function
         with torch.inference_mode():
             torch.testing.assert_close(up[0](x), full, rtol=0, atol=0)
+
+
+@DTYPES
+@Z
+@pytest.mark.parametrize("stages", [1, 2, 3])
+def test_assembly_matches_jax_and_the_stack_path(weights, jax_refs,
+                                                 monkeypatch, stages, z,
+                                                 dtype):
+    """The z-major route, forced on the CPU (where ``assemble`` is its
+    plain version): ``informative`` and the full output against JAX's and
+    against the stack-and-add path, and in fp32 against the dense
+    stack."""
+    up = _pair(weights, stages, dtype)
+    (e_ref, _), full_ref = jax_refs(z, dtype)["stages"][stages - 1]
+    x = torch.from_numpy(_x((2, z, 3, 4, C), 1))
+    with torch.inference_mode():
+        e_stack, full_stack = up.informative(x)[0], up(x)
+        monkeypatch.setattr(up_assemble, "route", lambda *a: True)
+        (e, bias), full = up.informative(x), up(x)
+    assert e.shape == e_stack.shape and e.dtype == dtype
+    assert e.transpose(0, 1).is_contiguous()    # a view of the z-major grid
+    assert bias is up[-1].bias
+    for got, jax_ref, stack in ((e, e_ref, e_stack),
+                                (full, full_ref, full_stack)):
+        _close(got, jax_ref, dtype)
+        torch.testing.assert_close(got.float(), stack.float(), **TOL[dtype])
+    if dtype == torch.float32:
+        dense = dense_reference(up)
+        with torch.no_grad():
+            ref = dense(x.permute(0, 4, 1, 2, 3)).permute(0, 2, 3, 4, 1)
+        torch.testing.assert_close(full, ref, atol=2e-5, rtol=1e-5)
 
 
 @Z

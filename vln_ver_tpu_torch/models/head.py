@@ -14,8 +14,11 @@ Forward modes, chosen by the config as in the reference
 With ``refine_occ`` the voxel grid goes through ``up_sample``
 (:class:`OccUpsampler`), the reference's stack of transposed convolutions
 that each double (h, w) (reference names ``up_sample.{i}``), computed by
-the JAX package's even-grid factorisation; ``occ_layout`` picks how the
-upsampled volume reaches ``occ_proj``:
+the JAX package's even-grid factorisation.  With autograd off on the card
+each stage's convolutions run on z-major activations and one kernel
+assembles the stage's even grid from their outputs (``ops/up_assemble.py``,
+``csrc/up_assemble.cu``).  ``occ_layout`` picks how the upsampled volume
+reaches ``occ_proj``:
 
 * ``'zhwc'`` (default): the (Z, H, W, C) layout.  Every odd row or column
   of a stride-2, dilation-2 transposed convolution is its bias alone, so
@@ -41,8 +44,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import up_assemble
 from ..ops.occ_mlp import (fused_route, lattice_plain, occ_mlp_lattice,
                            occ_mlp_rows)
+from ..ops.up_assemble import Taps
 from ..utils.cuda_graph import GraphCache
 from ..utils.profiling import count, span
 from .config import VERConfig
@@ -148,6 +153,35 @@ def _zslab(x: torch.Tensor, kernel: torch.Tensor, pad_y, pad_x):
                     padding=pad).permute(0, 2, 3, 4, 1)
 
 
+def _plane_conv(x: torch.Tensor, kernel: torch.Tensor, pad) -> torch.Tensor:
+    """z-major x (n, B, H, W, I), kernel (O, I, kh, kw) -> (n, B, H', W', O):
+    every plane's 2D correlation with the symmetric padding ``pad`` (y, x),
+    a depth-1 3D convolution over the n B planes as images (the 3D form,
+    as :func:`_zslab`).  A view of the convolution's output, never copied:
+    channels-last where cuDNN writes it so."""
+    n, b, h, w, c = x.shape
+    y = F.conv3d(x.reshape(n * b, 1, h, w, c).permute(0, 4, 1, 2, 3),
+                 kernel[:, :, None], padding=(0, *pad))
+    return y.permute(0, 2, 3, 4, 1).reshape(n, b, *y.shape[3:], y.shape[1])
+
+
+def _ztaps(x: torch.Tensor, kernel: torch.Tensor, pad,
+           planes: int = 0) -> Taps:
+    """z-major x (Z, B, H, W, I), kernel (O, I, 3, kh, kw) -> the z-taps'
+    outputs, as :meth:`_UpStage._conv` pairs them (k = 1 on every plane,
+    k = 0 on planes :Z-2, k = 2 on planes 2:), each a contiguous leading
+    slice of ``x``.  With ``planes``, x is one plane standing for each of
+    that many equal planes (the bias profile's range mask), and each tap
+    runs on it once."""
+    z = planes or x.shape[0]
+    mid = _plane_conv(x, kernel[:, :, 1], pad)
+    if z <= 2:
+        return Taps(mid, None, None)
+    low, high = (x, x) if planes else (x[:z - 2], x[2:])
+    return Taps(mid, _plane_conv(low, kernel[:, :, 0], pad),
+                _plane_conv(high, kernel[:, :, 2], pad))
+
+
 class _UpStage(ConvTranspose3d):
     """One upsampler stage by the JAX package's even-grid factorisation
     (vln_ver_tpu/models/head.py:94-207), on NDHWC tensors.
@@ -215,6 +249,34 @@ class _UpStage(ConvTranspose3d):
         prof = self._conv(mask, wb[:, None], (2, 2), (2, 2))
         return even + prof.to(even.dtype)
 
+    def even_taps(self, x: torch.Tensor):
+        """Stage 1 on the z-major route: z-major x (Z, B, H, W, C) in
+        ``dtype`` -> the arguments of :func:`.up_assemble.assemble`: its one
+        phase's z-taps, no profile, grid 1 (``even_conv``'s even grid,
+        z-major)."""
+        return [_ztaps(x, self._kernel().to(self.dtype), (2, 2))], None, 1
+
+    def phase_taps(self, e: torch.Tensor, prev_bias: torch.Tensor):
+        """Stages >= 2 on the z-major route: ``e`` the previous stage's
+        even grid without its bias, z-major (Z, B, m_y, m_x, C) in
+        ``dtype`` -> the arguments of :func:`.up_assemble.assemble`: the
+        four phases' z-taps, the bias profile's, grid 2 (``phase_conv``'s
+        even grid, z-major).  Each phase runs with the symmetric padding of
+        one, so its output holds its window at the offset of its parity;
+        the profile's range mask is one plane and one batch."""
+        z, _, m_y, m_x, _ = e.shape
+        k = self._kernel()
+        kd = k.to(self.dtype)
+        phases = [_ztaps(e, kd[:, :, :, py::2, px::2], (1, 1))
+                  for py in (0, 1) for px in (0, 1)]
+        wb = torch.einsum("oizyx,i->ozyx", k.float(), prev_bias.float())
+        mask = e.new_ones((1, 1, 2 * m_y, 2 * m_x, 1))
+        prof = _ztaps(mask, wb[:, None].to(self.dtype), (2, 2), planes=z)
+        # batch-free: a copy only where the one-channel convolution's
+        # output is not channels-last
+        return phases, Taps(*(t if t is None else t.contiguous()
+                              for t in prof)), 2
+
     def interleave(self, even: torch.Tensor) -> torch.Tensor:
         """The full output: ``even`` plus the bias at the even (y, x)
         cells, the bias alone at every other cell."""
@@ -251,13 +313,35 @@ class OccUpsampler(nn.ModuleList):
 
     def forward(self, x: torch.Tensor, informative: bool = False):
         """x (B, Z, H, W, C) -> the full output (B, Z, H 2^n, W 2^n, C), or
-        with ``informative`` what :meth:`informative` returns."""
-        e = self[0].even_conv(x)
-        for i in range(1, len(self)):
-            e = self[i].phase_conv(e, self[i - 1].bias)
+        with ``informative`` what :meth:`informative` returns.  Where
+        :func:`.up_assemble.route` allows, every stage is its convolutions
+        on z-major activations and one assembly kernel
+        (:meth:`_assembled`); elsewhere ``even_conv`` and ``phase_conv``.
+        Counts ``up#calls`` and ``up#fused_calls``."""
+        count("up#calls", 1)
+        if up_assemble.route(x.device, x.shape[-1], self[0].dtype):
+            count("up#fused_calls", 1)
+            e = self._assembled(x)
+        else:
+            e = self[0].even_conv(x)
+            for i in range(1, len(self)):
+                e = self[i].phase_conv(e, self[i - 1].bias)
         if informative:
             return e, self[-1].bias
         return self[-1].interleave(e)
+
+    def _assembled(self, x: torch.Tensor) -> torch.Tensor:
+        """The final even grid without its bias, as the stack-and-add path
+        gives it, computed z-major: x transposed once to (Z, B, H, W, C),
+        each stage's z-tap convolutions and :func:`.up_assemble.assemble`,
+        which writes the next stage's input; returned as a (B, Z, ...)
+        view."""
+        e = x.to(self[0].dtype).transpose(0, 1).contiguous()
+        e = up_assemble.assemble(*self[0].even_taps(e))
+        for i in range(1, len(self)):
+            e = up_assemble.assemble(*self[i].phase_taps(e,
+                                                         self[i - 1].bias))
+        return e.transpose(0, 1)
 
 
 def dense_reference(up: OccUpsampler) -> nn.Sequential:

@@ -97,6 +97,9 @@ def sm_count(device) -> int:
     return _SM_COUNT[index]
 
 
+CUDA_ERROR_INVALID_VALUE = 1
+
+
 class CudaKernel:
     """One ctypes-bound kernel: loads its library at first use, launches
     on the device's current stream, raises on a CUDA error and counts its
@@ -109,6 +112,9 @@ class CudaKernel:
 
     library = symbol = ""
     argtypes: list = []
+    # what the entry point refuses with cudaErrorInvalidValue, where it
+    # is the only check of it: raised as a ValueError that says so
+    refuses = ""
 
     def __init__(self):
         self.launches = 0
@@ -125,6 +131,9 @@ class CudaKernel:
         with torch.cuda.device(device):
             stream = torch.cuda.current_stream(device).cuda_stream
             err = self._fn(*args, stream)
+        if err == CUDA_ERROR_INVALID_VALUE and self.refuses:
+            raise ValueError(f"{self.symbol} refused its arguments: "
+                             f"{self.refuses}")
         if err != 0:
             raise RuntimeError(f"{self.symbol} launch failed: CUDA error "
                                f"{err}")
