@@ -226,9 +226,12 @@ Phases (any failure exits nonzero, nothing is caught):
      12 backward launches), card gradients against the CPU's; then the
      gather kernel (csrc/msda_gather.cu) at BEVFormer-base's three launch
      shapes (GATHER_SHAPES: the 4-level lift over 6 cameras, the TSA and
-     the decoder over the 200 x 200 BEV; fp32, and bf16 at the lift's),
-     one launch each and none of the staged kernel, against the plain
-     version, timed beside its bound and the plain version's time;
+     the decoder over the 200 x 200 BEV; fp32, and bf16 at the lift's)
+     and TPVFormer's two at head_dim 16, the narrow layout (the lift of
+     6 cameras' sub-query slots and the hybrid attention over the three
+     planes; fp32 and bf16), one launch each and none of the staged
+     kernel, against the plain version, timed beside its bound and the
+     plain version's time;
   13. the 36-view headline model of ``python -m vln_ver_tpu_torch.bench``
      (VERConfig(num_cams=36, dtype=bfloat16), seed-0 weights, the example
      inputs of numpy seed 0): the capacity derived from the rig (192);
@@ -323,7 +326,12 @@ GATHER_SHAPES = [
      32, 12608, 8),
     ("BEVFormer-base TSA", 2, ((200, 200),), 32, 40000, 4),
     ("BEVFormer-base decoder", 1, ((200, 200),), 32, 900, 4),
+    ("TPVFormer ICA", 6, ((116, 200), (58, 100), (29, 50), (15, 25)), 16,
+     12544, 8),
+    ("TPVFormer CVHA", 1, ((100, 100), (8, 100), (100, 8)), 16, 11600, 32),
 ]
+# the launches also timed in bf16: the BEVFormer-base lift and TPVFormer's
+GATHER_BF16 = (0, 3, 4)
 # phases 3 and 5: the launches of phases 11 and 12 at full width:
 # (name, bs, H, W, d, nq, P); the temporal model's SCA has the main shape
 PATH_SHAPES = [
@@ -2620,9 +2628,10 @@ def gather_bound_ms(bs, shapes, heads, d, nq, P, elt):
 
 def gather_shapes(card):
     """Phase 12's kernel part: the gather kernel against the plain version
-    at BEVFormer-base's three launch shapes (fp32, and bf16 at the lift's),
-    each timed with its bound and the plain version's time; every launch
-    goes to the gather kernel, none to the staged one."""
+    at BEVFormer-base's three launch shapes and TPVFormer's two (fp32, and
+    bf16 at GATHER_BF16's), each timed with its bound and the plain
+    version's time; every launch goes to the gather kernel, none to the
+    staged one."""
     import torch
 
     from vln_ver_tpu_torch.ops.deform_attn import ms_deform_attn_2d
@@ -2631,7 +2640,7 @@ def gather_shapes(card):
     dev = torch.device("cuda")
     numbers = {}
     cases = [(*c, torch.float32) for c in GATHER_SHAPES]
-    cases.append((*GATHER_SHAPES[0], torch.bfloat16))
+    cases += [(*GATHER_SHAPES[i], torch.bfloat16) for i in GATHER_BF16]
     for name, bs, shapes, d, nq, P, dtype in cases:
         rng = np.random.default_rng(7)
         rows, L, heads = sum(h * w for h, w in shapes), len(shapes), 8

@@ -118,6 +118,13 @@ def test_kernel_refuses_what_it_does_not_take(cuda):
     (torch.float32, 96, ((14, 14), (7, 7)), 3, 57),
     (torch.float32, 40, ((200, 200),), 1, 901),
     (torch.bfloat16, 250, ((20, 30), (10, 15)), 2, 33),
+    # head_dim <= 16: the narrow layout, 2 (fp32) or 4 (bf16) points a
+    # warp step, channels short of the lane group, points short of a step
+    (torch.float32, 16, ((100, 100), (8, 100), (100, 8)), 1, 300),
+    (torch.bfloat16, 16, ((116, 200), (58, 100), (29, 50), (15, 25)), 2,
+     300),
+    (torch.float32, 7, ((20, 30), (10, 15)), 2, 33),
+    (torch.bfloat16, 10, ((20, 30), (10, 15), (5, 8)), 2, 33),
 ])
 def test_gather_kernel_matches_plain(cuda, dtype, dim, levels, bs, nq):
     """Several levels, or one map over shared memory, take the gather

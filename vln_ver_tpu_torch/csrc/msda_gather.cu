@@ -49,9 +49,19 @@
 //     one or a few fully coalesced 128-byte reads and every accumulator
 //     index is a constant.  All four taps' loads of a point are issued
 //     before their FMAs.
+//  5. Narrow heads (d <= 16; TPVFormer's 128 channels in 8 heads): under
+//     design 4 lanes 16-31 would hold no channel (fp32) and in bf16 lanes
+//     8-31 none, idle on every tap.  The narrow kernel gives each point a
+//     group of G lanes, 16 in fp32 (one channel each) and 8 in bf16 (a
+//     pair each), so that a warp step takes 32 / G points, one a group;
+//     each group gets its point's taps by shuffle from the lane that set
+//     them up, and a tap's row is one 64- or 32-byte read a group.  At the
+//     item's end the groups' partial sums are added by xor-shuffles and
+//     the first group writes the row.  The wide kernel (d > 16) is as in
+//     4; ops/deform_cuda.plan_gather picks the layout by d.
 // What is left: the shuffles and tap setup cost each point about as many
-// warp instructions as its loads; a wider point step, or a per-camera
-// schedule that keeps one slot's levels resident, is later work (PERF.md).
+// warp instructions as its loads; a per-camera schedule that keeps one
+// slot's levels resident is later work (PERF.md).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -205,6 +215,125 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Design 5: heads of at most 16 channels, G = 16 / kN lanes a point.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    msda_gather_kernel_narrow(const Params prm) {
+  constexpr int kN = LaneVals<T>::kN;
+  constexpr int kG = 16 / kN;          // lanes a point
+  constexpr int kStep = 32 / kG;       // points a warp step
+  __shared__ int s_h[kMaxLevels], s_w[kMaxLevels], s_start[kMaxLevels];
+  if (threadIdx.x < prm.L) {
+    s_h[threadIdx.x] = prm.H[threadIdx.x];
+    s_w[threadIdx.x] = prm.W[threadIdx.x];
+    s_start[threadIdx.x] = prm.start[threadIdx.x];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int group = lane / kG;         // the point of the step it takes
+  const int c = (lane % kG) * kN;      // its first channel
+  const int heads = prm.heads, d = prm.d, nq = prm.nq, P = prm.P;
+  const int LP = prm.L * P;
+  const long long row_elems = static_cast<long long>(heads) * d;
+  const T* value = static_cast<const T*>(prm.value);
+  T* out = static_cast<T*>(prm.out);
+  const float2* loc2 = reinterpret_cast<const float2*>(prm.loc);
+
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * kWarps + warp) *
+      prm.items_per_warp;
+  for (int it = 0; it < prm.items_per_warp; ++it) {
+    const long long item = first + it;
+    if (item >= prm.items) return;
+    const long long bq = item / heads;
+    const int h = static_cast<int>(item - bq * heads);
+    const long long b = bq / nq;
+    const T* vbase = value + b * prm.nv * row_elems + h * d + c;
+
+    float acc[kN];
+#pragma unroll
+    for (int e = 0; e < kN; ++e) acc[e] = 0.f;
+
+    for (int c0 = 0; c0 < LP; c0 += 32) {
+      // as the wide kernel: lane i sets up point c0 + i's taps
+      const int p = c0 + lane;
+      int r[4] = {-1, -1, -1, -1};
+      float tw[4] = {0.f, 0.f, 0.f, 0.f};
+      if (p < LP) {
+        const float2 l = __ldg(loc2 + item * LP + p);
+        const float aw = __ldg(prm.weight + item * LP + p);
+        const int lvl = p / P;
+        const int Hl = s_h[lvl], Wl = s_w[lvl];
+        const float fW = static_cast<float>(Wl), fH = static_cast<float>(Hl);
+        const float x = __fsub_rn(__fmul_rn(l.x, fW), 0.5f);
+        const float y = __fsub_rn(__fmul_rn(l.y, fH), 0.5f);
+        const float x0 = floorf(x), y0 = floorf(y);
+        const float ax = x - x0, ay = y - y0;
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int dx = t & 1, dy = t >> 1;
+          const float xt = x0 + static_cast<float>(dx);
+          const float yt = y0 + static_cast<float>(dy);
+          if (xt >= 0.f && xt <= fW - 1.f && yt >= 0.f && yt <= fH - 1.f) {
+            r[t] = s_start[lvl] + static_cast<int>(yt) * Wl +
+                   static_cast<int>(xt);
+            tw[t] = aw * (dy ? ay : 1.f - ay) * (dx ? ax : 1.f - ax);
+          }
+        }
+      }
+      const int n = min(32, LP - c0);
+      for (int j = 0; j < n; j += kStep) {
+        // group g takes point j + g; a source lane at or past n holds no
+        // tap (its point is past LP)
+        const int src = j + group;
+        int rj[4];
+        float wj[4];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          rj[t] = __shfl_sync(0xffffffffu, r[t], src);
+          wj[t] = __shfl_sync(0xffffffffu, tw[t], src);
+        }
+        float v[4][kN];
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          if (rj[t] >= 0 && c < d) {
+            load_ro(vbase + rj[t] * row_elems, v[t]);
+          } else {
+#pragma unroll
+            for (int e = 0; e < kN; ++e) v[t][e] = 0.f;
+          }
+        }
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+          for (int e = 0; e < kN; ++e) acc[e] = fmaf(wj[t], v[t][e], acc[e]);
+      }
+    }
+    // the groups' partial sums, added across the warp
+#pragma unroll
+    for (int off = 16; off >= kG; off >>= 1)
+#pragma unroll
+      for (int e = 0; e < kN; ++e)
+        acc[e] += __shfl_xor_sync(0xffffffffu, acc[e], off);
+    if (group == 0) {
+      T* orow = out + item * d;
+#pragma unroll
+      for (int e = 0; e < kN; ++e)
+        if (c + e < d) store_val(orow + c + e, acc[e]);
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_narrow(const Params& prm, long long blocks,
+                          cudaStream_t st) {
+  msda_gather_kernel_narrow<T>
+      <<<static_cast<unsigned int>(blocks), kThreads, 0, st>>>(prm);
+  return cudaGetLastError();
+}
+
 template <typename T, int KC>
 cudaError_t launch(const Params& prm, long long blocks, cudaStream_t st) {
   msda_gather_kernel<T, KC>
@@ -245,19 +374,24 @@ cudaError_t launch_bf16(const Params& prm, int kc, long long blocks,
 // levels' (H, W) as 2L ints on the host; loc (bs, nq, heads, L, P, 2) fp32,
 // 8-byte aligned; weight (bs, nq, heads, L, P) fp32; out (bs, nq, heads*d)
 // in the value type.  All contiguous, all on the current device.
-// items_per_warp and blocks are the plan of ops/deform_cuda.plan_gather.
-// Returns cudaErrorInvalidValue for a plan or shape the kernel does not
-// take, else cudaGetLastError() after the launch.
+// point_lanes, items_per_warp and blocks are the plan of
+// ops/deform_cuda.plan_gather: point_lanes 32 takes the wide kernel, 16
+// (fp32) or 8 (bf16) the narrow one, which takes d <= 16.  Returns
+// cudaErrorInvalidValue for a plan or shape the kernel does not take, else
+// cudaGetLastError() after the launch.
 extern "C" int msda_gather_forward(const void* value, const void* loc,
                                    const void* weight, void* out, int bs,
                                    int nv, int heads, int d, int nq, int L,
                                    int P, const int* shapes,
-                                   int value_is_bf16, int items_per_warp,
-                                   long long blocks, void* stream) {
+                                   int value_is_bf16, int point_lanes,
+                                   int items_per_warp, long long blocks,
+                                   void* stream) {
+  const int narrow_lanes = value_is_bf16 ? 8 : 16;
   if (bs < 1 || nv < 1 || heads < 1 || nq < 1 || P < 1 || d < 1 ||
       d > kMaxHeadDim || L < 1 || L > kMaxLevels || items_per_warp < 1 ||
       (value_is_bf16 && d % 2 != 0) ||
-      reinterpret_cast<uintptr_t>(loc) % 8 != 0)
+      reinterpret_cast<uintptr_t>(loc) % 8 != 0 ||
+      (point_lanes != 32 && (point_lanes != narrow_lanes || d > 16)))
     return static_cast<int>(cudaErrorInvalidValue);
   Params prm;
   long long rows = 0;
@@ -286,8 +420,14 @@ extern "C" int msda_gather_forward(const void* value, const void* loc,
   prm.P = P;
   prm.items = items;
   prm.items_per_warp = items_per_warp;
-  const int kc = value_is_bf16 ? (d + 63) / 64 : (d + 31) / 32;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (point_lanes != 32) {
+    const cudaError_t err =
+        value_is_bf16 ? launch_narrow<__nv_bfloat16>(prm, blocks, s)
+                      : launch_narrow<float>(prm, blocks, s);
+    return static_cast<int>(err);
+  }
+  const int kc = value_is_bf16 ? (d + 63) / 64 : (d + 31) / 32;
   const cudaError_t err = value_is_bf16 ? launch_bf16(prm, kc, blocks, s)
                                         : launch_f32(prm, kc, blocks, s);
   return static_cast<int>(err);

@@ -81,8 +81,10 @@ def project_reference_points(ref_xyz: torch.Tensor,
       world2pixel: ``(..., num_cam, 4, 4)`` world->pixel matrices.
       origin_shift: ``(..., 3)`` world-frame translation of the viewpoint;
         its leading dims match those of ``world2pixel``.
-      pc_range: scene bounds used to denormalise ``ref_xyz``.
-      image_wh: image plane size for pixel-coordinate normalisation.
+      pc_range: scene bounds used to denormalise ``ref_xyz`` (a sequence,
+        or a float32 tensor on the device).
+      image_wh: image plane size for pixel-coordinate normalisation (as
+        ``pc_range``).
       eps: depth clamp (the reference uses 1e-5).
 
     Returns:
@@ -95,7 +97,9 @@ def project_reference_points(ref_xyz: torch.Tensor,
     ref_xyz = ref_xyz.to(dev, torch.float32)
     world2pixel = world2pixel.to(torch.float32)
     origin_shift = origin_shift.to(dev, torch.float32)
-    pc = torch.tensor(pc_range, dtype=torch.float32, device=dev)
+    # as_tensor: a tensor already on the device is used as it is, with no
+    # host-to-device copy (which waits for the stream)
+    pc = torch.as_tensor(pc_range, dtype=torch.float32, device=dev)
 
     world = (ref_xyz * (pc[3:6] - pc[0:3]) + pc[0:3]
              + origin_shift[..., None, :])                 # (..., nq, 3)
@@ -106,7 +110,7 @@ def project_reference_points(ref_xyz: torch.Tensor,
     depth = cam[..., 2:3]
     in_front = depth[..., 0] > eps
     xy = cam[..., 0:2] / torch.clamp(depth, min=eps)
-    xy = xy / torch.tensor(image_wh, dtype=torch.float32, device=dev)
+    xy = xy / torch.as_tensor(image_wh, dtype=torch.float32, device=dev)
 
     mask = (in_front
             & (xy[..., 0] > 0.0) & (xy[..., 0] < 1.0)

@@ -214,11 +214,7 @@ class SpatialCrossAttention(nn.Module):
         nq = query.shape[1]
         cap = self.query_capacity
         if cap and cap < nq:
-            # a stable sort of the 0/1 mask, as jax.lax.top_k is stable:
-            # the visible queries in index order, then the pad rows
-            idx = torch.sort(qmask.to(torch.uint8), dim=-1, descending=True,
-                             stable=True).indices[..., :cap]   # (B, cam, K)
-            valid = torch.gather(qmask, 2, idx)
+            idx, valid = lift_slots(qmask, cap)            # (B, cam, K)
             ref_k = torch.gather(ref, 2, idx[..., None, None].expand(
                 -1, -1, -1, *ref.shape[3:]))           # (B, cam, K, A, 2)
             out_k = self.deformable_attention(query, value, ref_k,
@@ -251,6 +247,16 @@ class SpatialCrossAttention(nn.Module):
         count = count.clamp_min(1.0)
         slots = (slots / count[..., None]).to(self.dtype)
         return self.dropout(self.output_proj(slots)) + residual
+
+
+def lift_slots(visible: torch.Tensor, capacity: int):
+    """The sparse lift's slots of each (sample, camera) from its (B, cams,
+    nq) visibility: a stable sort of the 0/1 mask, as jax.lax.top_k is
+    stable, gives the visible queries in index order, then the pad rows.
+    Returns their indices (B, cams, K) and which of them are visible."""
+    idx = torch.sort(visible.to(torch.uint8), dim=-1, descending=True,
+                     stable=True).indices[..., :capacity]
+    return idx, torch.gather(visible, 2, idx)
 
 
 def lift_overflow(mask: torch.Tensor, capacity: int,

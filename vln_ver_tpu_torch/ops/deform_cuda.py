@@ -348,20 +348,32 @@ def route(spatial_shapes: Sequence[Tuple[int, int]], d: int,
     return GATHER_ROUTE
 
 
+# lanes a point takes in the gather kernel's narrow layout (head_dim at
+# most NARROW_HEAD_DIM): one fp32 channel or one bf16 pair a lane
+NARROW_HEAD_DIM = 16
+NARROW_LANES = {4: 16, 2: 8}
+
+
 class GatherPlan(NamedTuple):
     """How a gather launch cuts the work: item ``i`` is (slot, query,
     head) ``i = (b * nq + q) * heads + h``; warp ``k`` of the grid takes
-    items ``[k * items_per_warp, (k + 1) * items_per_warp)``."""
+    items ``[k * items_per_warp, (k + 1) * items_per_warp)``, and
+    ``32 / point_lanes`` points of an item a step."""
     items: int           # bs * nq * heads
     items_per_warp: int
     blocks: int          # ceil(items / (GATHER_WARPS * items_per_warp))
+    # 32: a point a warp step, lane l channels l + 32k (the wide kernel);
+    # 16 (fp32) or 8 (bf16) for head_dim <= 16 (the narrow kernel)
+    point_lanes: int
 
 
 def plan_gather(bs: int, heads: int, nq: int, levels: int, d: int, elt: int,
                 sm_count: int) -> GatherPlan:
-    """The gather kernel's grid for ``nq`` queries of ``bs`` slots over
-    ``levels`` levels of ``elt``-byte values of ``d`` channels a head.
-    Raises ``ValueError`` on what the kernel does not take."""
+    """The gather kernel's grid and lane layout for ``nq`` queries of
+    ``bs`` slots over ``levels`` levels of ``elt``-byte values of ``d``
+    channels a head: the narrow layout (:data:`NARROW_LANES`) where ``d``
+    is at most :data:`NARROW_HEAD_DIM`, else a point a warp step.  Raises
+    ``ValueError`` on what the kernel does not take."""
     if elt not in (2, 4):
         raise ValueError(f"element size {elt}: the kernel takes fp32 (4) "
                          "or bf16 (2)")
@@ -382,7 +394,9 @@ def plan_gather(bs: int, heads: int, nq: int, levels: int, d: int, elt: int,
     blocks = -(-items // (GATHER_WARPS * per))
     if blocks > _INT_MAX:
         raise ValueError(f"{blocks} blocks exceed the grid's limit")
-    return GatherPlan(items=items, items_per_warp=per, blocks=blocks)
+    lanes = NARROW_LANES[elt] if d <= NARROW_HEAD_DIM else 32
+    return GatherPlan(items=items, items_per_warp=per, blocks=blocks,
+                      point_lanes=lanes)
 
 
 def _check_inputs(value: torch.Tensor,
@@ -551,7 +565,7 @@ class MsdaGatherKernel(CudaKernel):
 
     library, symbol = "msda_gather", "msda_gather_forward"
     argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
-                + [ctypes.c_void_p] + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] + [ctypes.c_int] * 3
                 + [ctypes.c_longlong, ctypes.c_void_p])
 
     def __call__(self, value: torch.Tensor,
@@ -571,8 +585,8 @@ class MsdaGatherKernel(CudaKernel):
         self._launch(value.device, value.data_ptr(), locations.data_ptr(),
                      weights.data_ptr(), out.data_ptr(), bs, nv, heads, d,
                      nq, L, P, shapes,
-                     int(value.dtype == torch.bfloat16), plan.items_per_warp,
-                     plan.blocks)
+                     int(value.dtype == torch.bfloat16), plan.point_lanes,
+                     plan.items_per_warp, plan.blocks)
         return out
 
 
